@@ -1,0 +1,71 @@
+"""Multi-index tables and per-dimension Hermite polynomials (port of
+`repro/core/multi_index.py`).
+
+3D multi-indices ``alpha = (n1, n2, n3)`` with ``0 <= n_i < p``; the paper's
+cut-off p = 4 gives 64 coefficients.  The tables are host numpy, computed
+once; the feature maps work on tensors of any device.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# Paper cut-off: alpha = beta = (3,3,3)  ->  p = 4 terms per dimension.
+DEFAULT_ORDER = 4
+
+
+@functools.lru_cache(maxsize=None)
+def multi_indices(p: int = DEFAULT_ORDER) -> np.ndarray:
+    """All 3D multi-indices with 0 <= n_i < p, shape (p**3, 3), C-order."""
+    idx = np.indices((p, p, p)).reshape(3, -1).T
+    return np.ascontiguousarray(idx.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def factorial_table(p: int = DEFAULT_ORDER) -> np.ndarray:
+    """n! for n = 0..p-1."""
+    out = np.ones((p,), dtype=np.float64)
+    for n in range(1, p):
+        out[n] = out[n - 1] * n
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def multi_factorial(p: int = DEFAULT_ORDER) -> np.ndarray:
+    """alpha! = n1! * n2! * n3! for every multi-index, shape (p**3,)."""
+    fac = factorial_table(p)
+    mi = multi_indices(p)
+    return fac[mi[:, 0]] * fac[mi[:, 1]] * fac[mi[:, 2]]
+
+
+@functools.lru_cache(maxsize=None)
+def sign_table(p: int = DEFAULT_ORDER) -> np.ndarray:
+    """(-1)^{|alpha|}, shape (p**3,)."""
+    return np.where(multi_indices(p).sum(axis=1) % 2 == 0, 1.0, -1.0)
+
+
+def monomials(x: torch.Tensor, p: int = DEFAULT_ORDER) -> torch.Tensor:
+    """x^alpha = x1^n1 * x2^n2 * x3^n3 for every multi-index (paper Eq. 5).
+
+    x: (..., 3) -> (..., p**3).
+    """
+    steps = [torch.ones_like(x)]
+    for _ in range(p - 1):
+        steps.append(steps[-1] * x)
+    pw = torch.stack(steps, dim=-1)                          # (..., 3, p)
+    mi = torch.as_tensor(multi_indices(p), dtype=torch.long, device=x.device)
+    return pw[..., 0, mi[:, 0]] * pw[..., 1, mi[:, 1]] * pw[..., 2, mi[:, 2]]
+
+
+def _per_dim_hermite_poly(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Physicists' Hermite polynomials H_n(t), n = 0..p-1, by the recurrence
+    H_0 = 1, H_1 = 2t, H_{n+1} = 2t H_n - 2n H_{n-1}.  (..., 3) -> (..., 3, p).
+    """
+    steps = [torch.ones_like(x)]
+    if p > 1:
+        steps.append(2.0 * x)
+    for n in range(1, p - 1):
+        steps.append(2.0 * x * steps[-1] - 2.0 * n * steps[-2])
+    return torch.stack(steps, dim=-1)

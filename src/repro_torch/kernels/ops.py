@@ -1,0 +1,44 @@
+"""Dispatch of every kernel call by the device of its tensors.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
+to the CUDA kernel, or the call raises.  There is no switch and no fallback:
+on the card the main path runs the kernels and nothing else.
+
+`launches` counts, per kernel, the launches of the CUDA kernel made through
+these wrappers (never the plain version); `reset_launches` zeroes it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import m2l_pair, msp_update as _msp
+
+launches = {"msp_update": 0, "m2l_separable": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def msp_update(x, refrac, calcium, syn_input, uniform, cfg):
+    """Fused MSP phase 1.  cfg: repro_torch.core.msp.MSPConfig.
+    Returns (x', refrac', spiked bool, calcium')."""
+    k = _msp.constants(cfg)
+    if x.device.type == "cpu":
+        return _msp.msp_update_plain(x, refrac, calcium, syn_input, uniform, k)
+    out = _msp.msp_update_cuda(x, refrac, calcium, syn_input, uniform, k)
+    if x.shape[0]:
+        launches["msp_update"] += 1
+    return out
+
+
+def m2l_separable(moms: torch.Tensor, herm: torch.Tensor, y: torch.Tensor,
+                  p: int = 4) -> torch.Tensor:
+    """Envelope-free separable M2L series.  (B, p^3), (B, p^3), (B, 3) -> (B,)."""
+    if moms.device.type == "cpu":
+        return m2l_pair.m2l_separable_plain(moms, herm, y, p)
+    out = m2l_pair.m2l_separable_cuda(moms, herm, y, p)
+    if moms.shape[0]:
+        launches["m2l_separable"] += 1
+    return out

@@ -1,0 +1,62 @@
+"""The port stands alone: no module of `src/repro_torch/`, and not
+`chip_smoke.py`, imports JAX or the JAX package; and its entry points run
+on the CUDA card unless the caller asks for the CPU, raising without one."""
+import ast
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert, device
+from repro_torch.core import engine, noise
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    banned = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not banned, f"{path} imports {sorted(banned)}"
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"engine.py", "msp_update.py", "m2l_pair.py", "chip_smoke.py"} <= names
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
+    pos = np.zeros((8, 3), np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        device.resolve()
+    with pytest.raises(RuntimeError, match="cuda"):
+        engine.PlasticityEngine(pos)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.from_jax_state({})
+    with pytest.raises(RuntimeError):
+        noise.GeneratorNoise(0, device.resolve("cuda"))
+    assert device.resolve("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("field,value", [("method", "barnes_hut"), ("method", "direct"),
+                                         ("pyramid", "m2m"), ("rng", "counter")])
+def test_unported_options_raise_not_implemented(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.EngineConfig(**{field: value})
