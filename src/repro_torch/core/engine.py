@@ -7,15 +7,20 @@ connectivity update):
 
     1. delete excess synapses (elements < synapses), both sides;
     2. recompute vacancies;
-    3. rebuild the octree aggregates (upward pass);
-    4. find partner requests with the FMM descent and the leaf resolve;
+    3. rebuild the octree aggregates (upward pass): the full pyramid for
+       "fmm", only the dendrite counts and centroids for "barnes_hut", none
+       for "direct";
+    4. find partner requests: the FMM descent (`method="fmm"`), the
+       per-neuron Barnes-Hut descent ("barnes_hut"), each followed by the
+       leaf resolve, or the O(n^2) pairwise draw ("direct");
     5. dendrite-side conflict resolution;
     6. commit accepted synapses.
 
 `simulate` is a host loop over `step`; the update runs when the advanced
 step counter is a multiple of `update_interval`, as in the JAX engine.
 Each layer runs inside a `torch.profiler.record_function` range (`step.*`,
-`update.*`, `traversal.*`), so a profile attributes device time to layers.
+`update.*`, `traversal.*`, `bh.descend`, `direct.find`), so a profile
+attributes device time to layers.
 Every random draw comes from a noise object (`core.noise`), by default the
 generator-backed one seeded from `seed`.
 """
@@ -29,7 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import device as _device
-from repro_torch.core import msp, octree, synapses, traversal
+from repro_torch.core import barnes_hut, msp, octree, synapses, traversal
 from repro_torch.core.msp import MSPConfig, NeuronState
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.synapses import SynapseState
@@ -54,7 +59,7 @@ class StepRecord(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    method: str = "fmm"                 # fmm (barnes_hut, direct: ROADMAP Queue 1 item 7)
+    method: str = "fmm"                 # fmm | barnes_hut | direct
     edge_capacity_per_neuron: int = 64
     max_requests_per_neuron: int = 4    # unit-expansion bound per update
     domain: float = 1000.0              # cube side, micrometres
@@ -69,10 +74,6 @@ class EngineConfig:
         if self.method not in ("fmm", "barnes_hut", "direct"):
             raise ValueError(f"method must be one of 'fmm'/'barnes_hut'/'direct', "
                              f"got {self.method!r}")
-        if self.method != "fmm":
-            raise NotImplementedError(
-                f"method={self.method!r} is not ported yet (ROADMAP.md Queue 1 "
-                f"item 7)")
         if self.pyramid not in ("segsum", "m2m"):
             raise ValueError(f"pyramid must be 'segsum' or 'm2m', got {self.pyramid!r}")
         if self.pyramid != "segsum":
@@ -125,7 +126,6 @@ class PlasticityEngine:
         """The update with the draws of `step` (the step counter before the
         activity step that triggered it)."""
         n = self.n
-        cfg = self.fmm_cfg
         neurons = state.neurons
         with record_function("update.delete_excess"):
             edges = synapses.delete_excess(state.edges, neurons.ax_elems,
@@ -135,11 +135,7 @@ class PlasticityEngine:
                                  - synapses.out_degree(edges, n), min=0).to(torch.float32)
             den_vac = torch.clamp(torch.floor(neurons.den_elems).to(torch.int32)
                                   - synapses.in_degree(edges, n), min=0).to(torch.float32)
-        with record_function("update.pyramid"):
-            levels = octree.build_pyramid(self.tree, self.positions, ax_vac, den_vac,
-                                          cfg.delta, cfg.p)
-        partner = traversal.find_partners(self.tree, levels, self.positions,
-                                          ax_vac, den_vac, cfg, noise, step)
+        partner = self._find_partners(ax_vac, den_vac, noise, step)
         with record_function("update.conflicts_insert"):
             req_cnt = torch.clamp(ax_vac.to(torch.int32),
                                   max=self.engine_cfg.max_requests_per_neuron)
@@ -150,6 +146,25 @@ class PlasticityEngine:
             edges, dropped = synapses.insert(edges, partner, accepted,
                                              self.engine_cfg.max_requests_per_neuron)
         return state._replace(edges=edges, dropped=state.dropped + dropped)
+
+    def _find_partners(self, ax_vac, den_vac, noise, step: int) -> torch.Tensor:
+        """(n,) int32 partner request per neuron (-1 = none), by the
+        configured search method."""
+        cfg = self.fmm_cfg
+        method = self.engine_cfg.method
+        if method == "direct":
+            return barnes_hut.find_partners_direct(self.positions, ax_vac, den_vac,
+                                                   cfg, noise, step)
+        if method == "barnes_hut":
+            with record_function("update.pyramid"):
+                levels = octree.build_dendrite_pyramid(self.tree, self.positions, den_vac)
+            return barnes_hut.find_partners_bh(self.tree, levels, self.positions, ax_vac,
+                                               den_vac, cfg, noise, step)
+        with record_function("update.pyramid"):
+            levels = octree.build_pyramid(self.tree, self.positions, ax_vac, den_vac,
+                                          cfg.delta, cfg.p)
+        return traversal.find_partners(self.tree, levels, self.positions, ax_vac, den_vac,
+                                       cfg, noise, step)
 
     # -- one simulation step -------------------------------------------------
     def step(self, state: SimState, noise) -> Tuple[SimState, StepRecord]:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_SPIKE, _DELETE, _DESCENT, _LEAF, _CONFLICT = range(5)
+_SPIKE, _DELETE, _DESCENT, _LEAF, _CONFLICT, _DIRECT = range(6)
 
 
 class GeneratorNoise:
@@ -63,13 +63,17 @@ class GeneratorNoise:
         return self._bits((e,), _DELETE, step, side)
 
     def descent_gumbel(self, step: int, level: int, o: int) -> torch.Tensor:
-        """(o, 8) Gumbel noise for the descent into `level` (1..depth) over
-        its o occupied source boxes."""
+        """(o, 8) Gumbel noise for the descent into `level` (1..depth): one
+        row per occupied source box (FMM) or per neuron (Barnes-Hut)."""
         return self._gumbel((o, 8), _DESCENT, step, level)
 
     def leaf_gumbel(self, step: int, n: int, max_leaf: int) -> torch.Tensor:
         """(n, max_leaf) Gumbel noise for the neuron-level leaf resolve."""
         return self._gumbel((n, max_leaf), _LEAF, step)
+
+    def direct_gumbel(self, step: int, n: int) -> torch.Tensor:
+        """(n, n) Gumbel noise for the direct method's pairwise partner draw."""
+        return self._gumbel((n, n), _DIRECT, step)
 
     def conflict_bits(self, step: int, n: int) -> torch.Tensor:
         """(n,) conflict-resolution priorities of the request rows."""

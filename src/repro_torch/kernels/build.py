@@ -31,6 +31,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "msp_update_launch": [_P] * 9 + [_I] + [_F] * 6 + [_I, _P],
     "m2l_separable_launch": [_P] * 4 + [_I, _P],
+    "gaussian_nbody_launch": [_P] * 4 + [_I, _I, _F, _P],
 }
 
 

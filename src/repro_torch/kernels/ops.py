@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import m2l_pair, msp_update as _msp
+from repro_torch.kernels import gaussian_nbody as _nbody, m2l_pair, msp_update as _msp
 
-launches = {"msp_update": 0, "m2l_separable": 0}
+launches = {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 0}
 
 
 def reset_launches() -> None:
@@ -41,4 +41,15 @@ def m2l_separable(moms: torch.Tensor, herm: torch.Tensor, y: torch.Tensor,
     out = m2l_pair.m2l_separable_cuda(moms, herm, y, p)
     if moms.shape[0]:
         launches["m2l_separable"] += 1
+    return out
+
+
+def gaussian_nbody(targets: torch.Tensor, sources: torch.Tensor,
+                   weights: torch.Tensor, delta: float) -> torch.Tensor:
+    """u_i = sum_j w_j exp(-||t_i - s_j||^2/delta).  (N, 3), (M, 3), (M,) -> (N,)."""
+    if targets.device.type == "cpu":
+        return _nbody.gaussian_nbody_plain(targets, sources, weights, delta)
+    out = _nbody.gaussian_nbody_cuda(targets, sources, weights, delta)
+    if targets.shape[0]:
+        launches["gaussian_nbody"] += 1
     return out

@@ -35,8 +35,10 @@ ENGINE_CFG = engine.EngineConfig()
 class JaxReplayNoise:
     """The JAX engine's draws, derived from its key as `engine.simulate`
     (`fold_in(key, step)`, split into kact/kconn), `connectivity_update`
-    (kconn split in 3), `delete_excess`, `descend`, `resolve_leaf_partners`
-    and `resolve_conflicts` derive them."""
+    (kconn split in 3), `delete_excess`, `descend` (and the Barnes-Hut
+    descent, which draws from the same keys with one row per neuron),
+    `resolve_leaf_partners`, `find_partners_direct` and `resolve_conflicts`
+    derive them."""
 
     def __init__(self, key):
         self.key = key
@@ -66,6 +68,9 @@ class JaxReplayNoise:
         k2 = jax.random.split(self._keys(step)[2])[1]
         return self._t(jax.random.gumbel(jax.random.fold_in(k2, 10_000),
                                          (n, max_leaf), jnp.float32))
+
+    def direct_gumbel(self, step, n):
+        return self._t(jax.random.gumbel(self._keys(step)[2], (n, n), jnp.float32))
 
     def conflict_bits(self, step, n):
         return self._t(jax.random.bits(self._keys(step)[3], (n,), jnp.uint32)

@@ -16,7 +16,7 @@ from repro_torch.core.engine import EngineConfig, PlasticityEngine
 from repro_torch.core.msp import MSPConfig
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.traversal import FMMConfig
-from repro_torch.kernels import m2l_pair, msp_update as kmsp, ops
+from repro_torch.kernels import gaussian_nbody as knb, m2l_pair, msp_update as kmsp, ops
 
 
 @pytest.fixture
@@ -74,6 +74,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         m2l_pair.m2l_separable_cuda(z, z, torch.zeros((4, 3), device=cuda_device), p=3)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 513), (255, 1025), (300, 1000), (1024, 128),
+                                 (4097, 3001)])
+def test_gaussian_nbody_kernel_vs_plain(cuda_device, n, m):
+    """rtol 2e-5, atol 1e-6, as the Pallas kernel is held to its oracle."""
+    rng = np.random.default_rng(n + m)
+    t = lambda hi, shape: torch.from_numpy(
+        rng.uniform(0, hi, shape).astype(np.float32)).to(cuda_device)
+    tgt, src, w = t(3000, (n, 3)), t(3000, (m, 3)), t(5, (m,))
+    ops.reset_launches()
+    got = ops.gaussian_nbody(tgt, src, w, 750.0 ** 2)
+    want = knb.gaussian_nbody_plain(tgt, src, w, 750.0 ** 2)
+    torch.cuda.synchronize()
+    assert ops.launches["gaussian_nbody"] == 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_gaussian_nbody_at_a_million_sources_vs_float64(cuda_device):
+    rng = np.random.default_rng(0)
+    pos = torch.from_numpy(rng.uniform(0, 2190, (1 << 20, 3)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.integers(0, 6, 1 << 20).astype(np.float32)).to(cuda_device)
+    tgt = pos[::1024].contiguous()
+    got = knb.gaussian_nbody_cuda(tgt, pos, w, 750.0 ** 2)
+    want = knb.gaussian_nbody_plain(tgt.double(), pos.double(), w.double(), 750.0 ** 2)
+    torch.testing.assert_close(got, want.float(), rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_gaussian_nbody_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    z = torch.zeros((8, 3), device=cuda_device)
+    w = torch.zeros((8,), device=cuda_device)
+    with pytest.raises(ValueError):
+        knb.gaussian_nbody_cuda(z.double(), z, w, 1.0)
+    with pytest.raises(ValueError):
+        knb.gaussian_nbody_cuda(z, z.T.contiguous().T, w, 1.0)
+    with pytest.raises(ValueError):
+        knb.gaussian_nbody_cuda(z, z, w[:4], 1.0)
+
+
 class _CpuDraws:
     """GeneratorNoise drawn on the CPU and moved to the card, so the card's
     run and the CPU's run see the same numbers."""
@@ -113,3 +153,51 @@ def test_main_path_on_card_equals_plain_versions_on_cpu(cuda_device):
     for f in ("src", "dst", "valid"):
         assert torch.equal(getattr(sg.edges, f).cpu(), getattr(sc.edges, f))
     assert torch.equal(sg.neurons.calcium.cpu(), sc.neurons.calcium)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["barnes_hut", "direct"])
+def test_other_methods_on_card_equal_plain_versions_on_cpu(cuda_device, method):
+    """As above for the Barnes-Hut and direct searches, which launch
+    msp_update every step and neither of the other kernels."""
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, 1000.0, (256, 3)).astype(np.float32)
+    init = rng.uniform((0.4, 0, 0), (0.7, 6, 6), (256, 3)).astype(np.float32).T.copy()
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = PlasticityEngine(pos, MSPConfig.calibrated(speedup=100.0),
+                               FMMConfig(c1=8, c2=8), EngineConfig(method=method), device=dev)
+        st = eng.init_state()
+        c = torch.from_numpy(init).to(dev)
+        st = st._replace(neurons=st.neurons._replace(calcium=c[0], ax_elems=c[1],
+                                                     den_elems=c[2]))
+        ops.reset_launches()
+        out[dev.type] = eng.simulate(st, 300, noise=_CpuDraws(1, dev)), dict(ops.launches)
+    (sg, rg), launches = out["cuda"]
+    (sc, rc), _ = out["cpu"]
+    assert launches == {"msp_update": 300, "m2l_separable": 0, "gaussian_nbody": 0}
+    assert int(rc.num_synapses[-1]) > 0
+    assert torch.equal(rg.num_synapses.cpu(), rc.num_synapses)
+    assert torch.equal(rg.spike_rate.cpu(), rc.spike_rate)
+    for f in ("src", "dst", "valid"):
+        assert torch.equal(getattr(sg.edges, f).cpu(), getattr(sc.edges, f))
+    assert torch.equal(sg.neurons.calcium.cpu(), sc.neurons.calcium)
+
+
+@pytest.mark.gpu
+def test_dendrite_pyramid_on_card_equals_the_full_pyramids_dendrite_sums(cuda_device):
+    """At 2^20 neurons on the card, Barnes-Hut's pyramid holds bit for bit
+    the den_w and den_c of the FMM's full pyramid."""
+    from repro_torch.core import octree
+    n, domain = 1 << 20, 2190.0
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, domain, (n, 3)).astype(np.float32)
+    tree = octree.to_device(octree.build_structure(pos, domain), cuda_device)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    ax = t(rng.integers(0, 6, n).astype(np.float32))
+    den = t(rng.integers(0, 6, n).astype(np.float32))
+    full = octree.build_pyramid(tree, t(pos), ax, den, FMMConfig().delta)
+    got = octree.build_dendrite_pyramid(tree, t(pos), den)
+    for lv, fl in zip(got, full):
+        assert torch.equal(lv.den_w, fl.den_w)
+        assert torch.equal(lv.den_c, fl.den_c)

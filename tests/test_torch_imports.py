@@ -33,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "msp_update.py", "m2l_pair.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "msp_update.py", "m2l_pair.py", "gaussian_nbody.py",
+            "barnes_hut.py", "direct.py", "analysis.py", "chip_smoke.py"} <= names
 
 
 @pytest.fixture
@@ -55,8 +56,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
     assert device.resolve("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("field,value", [("method", "barnes_hut"), ("method", "direct"),
-                                         ("pyramid", "m2m"), ("rng", "counter")])
+@pytest.mark.parametrize("field,value", [("pyramid", "m2m"), ("rng", "counter")])
 def test_unported_options_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.EngineConfig(**{field: value})

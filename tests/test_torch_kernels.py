@@ -167,4 +167,5 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.msp_update(*map(torch.from_numpy, args), CONFIGS["paper"])
     z = torch.zeros((3, 64))
     ops.m2l_separable(z, z, torch.zeros((3, 3)))
-    assert ops.launches == {"msp_update": 0, "m2l_separable": 0}
+    ops.gaussian_nbody(torch.zeros((5, 3)), torch.ones((7, 3)), torch.ones(7), 1.0)
+    assert ops.launches == {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 0}
