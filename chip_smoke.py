@@ -35,10 +35,27 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              (1.1e12 kernel terms, one gaussian_nbody launch);
 9. fig5    — the paper's Fig. 5 (500 boxes, seed 0): Hermite, Taylor, M2L
              and point-mass errors against `direct.attraction`, on the card
-             and with the plain versions on the CPU.
+             and with the plain versions on the CPU;
+10. sweep  — `EnsembleEngine`, K = 4 replicas of the main configuration
+             with a sigma x inhibitory-fraction grid of KernelParams: every
+             replica equals its sequential run bit for bit, the identity
+             row the plain engine; batched step and per-replica update
+             times, peak memory; msp_update at the sweep's shape (one
+             launch over 4 x 2^20 neurons) against its plain version bit
+             for bit, timed beside its bound;
+11. m2m    — the main configuration with pyramid="m2m": update times and
+             the pyramid's device time beside phase 4's, and the m2m
+             pyramid against the segsum pyramid at 2^20;
+12. probes — the main configuration through `simulate_chunked` with spike,
+             calcium and turnover probes, a lesion at step 150 and a
+             CheckpointManager: equal to the probe-free run, reproduced by
+             a restore from step 200, probe overhead (to the last
+             checkpoint's flush) and bytes written.
 
-Each path phase (main, bh, direct, field, fig5) zeroes the launch counts
-just before it and reads them just after.  The script prints the card's
+Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
+card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
+m2m, probes) zeroes the launch counts just before it and reads them just
+after.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -47,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -290,38 +308,45 @@ def mid_growth(eng, seed: int):
     return st._replace(neurons=st.neurons._replace(calcium=ca, ax_elems=ax, den_elems=den))
 
 
-def timed_run(eng, seed: int, steps: int = 300):
-    """`steps` steps from the mid-growth state through simulate, cut at the
-    updates so each chunk can be timed: interval - 1 activity steps, then the
-    step whose update follows.  Returns (state, synapses per step, activity
-    step times, update times), times in seconds."""
+def timed_run(eng, seed: int, steps: int = 300, state=None, simulate=None):
+    """`steps` steps from the mid-growth state (or `state`) through
+    `eng.simulate` (or `simulate(state, k)`), cut at the updates so each
+    chunk can be timed: interval - 1 activity steps, then the step whose
+    update follows.  Returns (state, synapses per step, activity step times,
+    update times), times in seconds."""
     interval = eng.msp_cfg.update_interval
-    st = mid_growth(eng, seed)
+    st = mid_growth(eng, seed) if state is None else state
+    simulate = simulate or (lambda s, k: eng.simulate(s, k, seed=seed))
     torch.cuda.synchronize()
     step_s, update_s, recs = [], [], []
     for _ in range(steps // interval):
         t = time.perf_counter()
-        st, r1 = eng.simulate(st, interval - 1, seed=seed)
+        st, r1 = simulate(st, interval - 1)
         torch.cuda.synchronize()
         step_s.append((time.perf_counter() - t) / (interval - 1))
         t = time.perf_counter()
-        st, r2 = eng.simulate(st, 1, seed=seed)
+        st, r2 = simulate(st, 1)
         torch.cuda.synchronize()
         update_s.append(time.perf_counter() - t - step_s[-1])
         recs.append(torch.cat([r1.num_synapses, r2.num_synapses]))
     return st, torch.cat(recs).cpu().numpy(), step_s, update_s
 
 
-def check_run(tag: str, st, syn: np.ndarray, interval: int, launches: dict,
-              expect: dict) -> None:
-    """Synapses at the first update, no overflow, finite state, and the
-    path's launch counts: `expect` maps a kernel to its exact count, or to
-    None for "at least one"."""
+def check_launches(tag: str, launches: dict, expect: dict) -> None:
+    """`expect` maps a kernel to its exact count, or to None for "at least
+    one"."""
     for name, want in expect.items():
         got = launches[name]
         if (want is None and got == 0) or (want is not None and got != want):
             raise AssertionError(f"{tag}: {name} launched {got} times, expected "
                                  f"{'> 0' if want is None else want}")
+
+
+def check_run(tag: str, st, syn: np.ndarray, interval: int, launches: dict,
+              expect: dict) -> None:
+    """Synapses at the first update, no overflow, finite state, and the
+    path's launch counts (`check_launches`)."""
+    check_launches(tag, launches, expect)
     if not syn[interval - 1] > 0:
         raise AssertionError(f"{tag}: no synapse formed at the first connectivity update")
     if int(st.dropped) != 0:
@@ -415,7 +440,8 @@ def phase_main(seed: int) -> dict:
 
 def profile_window(fn) -> dict:
     """torch.profiler over fn(): wall time, device busy time (sum of kernel
-    times), device time per layer range and the costliest operators."""
+    times), the number of device operations, device time per layer range
+    and the costliest operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -429,14 +455,19 @@ def profile_window(fn) -> dict:
     # ranges span idle gaps too and are left out.
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CPU) / 1e3
+    ranges = ("step", "update", "pyramid", "traversal", "bh", "direct")
     layers = {e.key: round(e.device_time_total / 1e3, 3) for e in events
-              if e.device_type == DeviceType.CPU
-              and e.key.split(".")[0] in ("step", "update", "traversal", "bh", "direct")}
+              if e.device_type == DeviceType.CPU and e.key.split(".")[0] in ranges}
+    # Kernels, copies and memsets run on the card (the ranges' device-side
+    # copies left out).
+    device_ops = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                     and e.key.split(".")[0] not in ranges)
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::") and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:6]
     return dict(wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
-                idle_share=round(1 - busy / wall, 3), layers_device_ms=layers,
+                idle_share=round(1 - busy / wall, 3), device_ops=device_ops,
+                layers_device_ms=layers,
                 top_ops_device_ms={e.key: round(e.self_device_time_total / 1e3, 3)
                                    for e in ops})
 
@@ -488,6 +519,50 @@ def phase_small(seed: int) -> None:
             raise AssertionError(f"{tag}: no synapses formed")
         log(f"[small] {tag}, 300 steps: card (kernels) == CPU (plain versions): "
             f"records, edges and calcium identical; synapses {int(rc.num_synapses[-1])}")
+    small_ensemble_and_m2m(seed, pos)
+
+
+def small_ensemble_and_m2m(seed: int, pos: np.ndarray) -> None:
+    """At N = 256, card against CPU: the sweep's K = 4 ensemble (its grid of
+    KernelParams, per-replica draws) and the FMM with pyramid="m2m"."""
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.ensemble import EnsembleEngine, stack_states
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.launch import sweep
+    n = pos.shape[0]
+    for tag in ("ensemble K=4", "fmm pyramid=m2m"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng = PlasticityEngine(pos, MSPConfig.calibrated(speedup=100.0),
+                                   FMMConfig(c1=8, c2=8, sigma=600.0),
+                                   EngineConfig(pyramid="m2m" if "m2m" in tag else "segsum"),
+                                   device=dev)
+            st = eng.init_state()
+            g = np.random.default_rng(seed + 1)
+            t = lambda lo, hi: torch.as_tensor(g.uniform(lo, hi, n).astype(np.float32),
+                                               device=eng.device)
+            st = st._replace(neurons=st.neurons._replace(
+                calcium=t(0.4, 0.7), ax_elems=t(0, 6), den_elems=t(0, 6)))
+            if "m2m" in tag:
+                out[dev] = eng.simulate(st, 300, noise=CpuDraws(seed, eng.device))
+                continue
+            grid = sweep_grid()
+            out[dev] = EnsembleEngine(eng).simulate(
+                stack_states([st] * len(grid)), 300, params=sweep.pack_params(eng, grid),
+                noises=[CpuDraws(seed + 1 + r, eng.device) for r in range(len(grid))])
+        (sg, rg), (sc, rc) = out["cuda"], out["cpu"]
+        for f, a, b in [*zip(rg._fields, rg, rc), *zip(sg.edges._fields, sg.edges, sc.edges),
+                        ("calcium", sg.neurons.calcium, sc.neurons.calcium)]:
+            if not torch.equal(a.cpu(), b):
+                diff = (a.cpu().double() - b.double()).abs()
+                raise AssertionError(f"N={n} {tag}: card and CPU differ in {f} at "
+                                     f"{int((diff > 0).sum())} entries, max {float(diff.max())}")
+        syn = rc.num_synapses[-1]
+        if not bool((syn > 0).all()):
+            raise AssertionError(f"N={n} {tag}: no synapses formed")
+        log(f"[small] N={n} {tag}, 300 steps: card (kernels) == CPU (plain versions): "
+            f"records, edges and calcium identical; synapses {syn.tolist()}")
 
 
 def phase_fig1(seed: int) -> None:
@@ -710,7 +785,334 @@ def phase_fig5(num_boxes: int = 500) -> dict:
     return dict(card=card, cpu=cpu, boxes=boxes, launches=launches)
 
 
-PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5")
+
+def sweep_grid() -> list:
+    """The sweep phase's grid: sigma in {600, 750} x inhibitory fraction in
+    {0, 0.2}; its first row, (600, 0), is the engine's static configs."""
+    from repro_torch.launch import sweep
+    return sweep.grid(sigma=[600.0, 750.0], inhibitory_fraction=[0.0, 0.2])
+
+
+def phase_sweep(seed: int, main: dict) -> dict:
+    """EnsembleEngine with K = 4 replicas of the main configuration (2^20
+    neurons each), engine sigma 600 (the sweep minimum), params from
+    `sweep_grid`, each replica with its own GeneratorNoise.  Each replica
+    must equal, bit for bit, a sequential `PlasticityEngine.simulate` with
+    its params row and noise; the identity row also the plain engine
+    without params."""
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.ensemble import EnsembleEngine, replica_noises, stack_states
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sweep
+    steps = 300
+    eng = PlasticityEngine(main_positions(seed), MSPConfig.calibrated(speedup=100.0),
+                           FMMConfig(sigma=600.0), EngineConfig(domain=MAIN_DOMAIN))
+    interval = eng.msp_cfg.update_interval
+    grid = sweep_grid()
+    k = len(grid)
+    params = sweep.pack_params(eng, grid)
+    ens = EnsembleEngine(eng)
+    st0 = mid_growth(eng, seed)
+    noises = replica_noises(seed, k, eng.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    recs = []
+
+    def run(st, num):
+        st, r = ens.simulate(st, num, noises=noises, params=params)
+        recs.append(r)
+        return st, r
+    t = time.perf_counter()
+    states, syn, step_s, update_s = timed_run(eng, seed, steps, stack_states([st0] * k), run)
+    batch_s = time.perf_counter() - t
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("sweep", launches, {"msp_update": steps, "m2l_separable": None,
+                                       "gaussian_nbody": 0})
+    recs = [torch.cat(f) for f in zip(*recs)]
+    if not (syn[interval - 1] > 0).all() or bool((states.dropped != 0).any()):
+        raise AssertionError(f"sweep: synapses at the first update {syn[interval - 1]}, "
+                             f"dropped {states.dropped.tolist()}")
+    log(f"[sweep] K={k} x n={eng.n}, grid {grid}: synapses after updates "
+        f"{syn[interval - 1::interval].tolist()}; launches {launches}")
+    log(f"[sweep] batched step {np.mean(step_s) * 1e3:.3f} ms for {k} replicas (per chunk "
+        f"{[round(t * 1e3, 3) for t in step_s]}) against {k} x phase 4's "
+        f"{main['step_ms']:.3f} = {k * main['step_ms']:.3f} ms; connectivity update "
+        f"{[round(t, 4) for t in update_s]} s, per replica "
+        f"{[round(t / k, 4) for t in update_s]} s; peak memory {peak / 2**30:.2f} GiB")
+
+    def same(tag, rec, st, r):
+        for f, a, b in zip(rec._fields, rec, recs):
+            if not torch.equal(a, b[:, r]):
+                raise AssertionError(f"sweep: replica {r} differs from {tag} in {f}")
+        for f in ("src", "dst", "valid"):
+            if not torch.equal(getattr(st.edges, f), getattr(states.edges, f)[r]):
+                raise AssertionError(f"sweep: replica {r} edge table ({f}) differs from {tag}")
+    seq_s = 0.0
+    for r in range(k):
+        t = time.perf_counter()
+        st, rec = eng.simulate(st0, steps, noise=noises[r], params=params.row(r))
+        torch.cuda.synchronize()
+        seq_s += time.perf_counter() - t
+        same("its sequential run", rec, st, r)
+        del st, rec
+    st, rec = eng.simulate(st0, steps, noise=noises[0])
+    same("the plain engine without params", rec, st, 0)
+    log(f"[sweep] every replica == its sequential run (records and edge tables, bit for "
+        f"bit); the identity row {grid[0]} == the plain engine; {k} sequential runs "
+        f"took {seq_s:.2f} s, the batch {batch_s:.2f} s")
+    msp = check_batched_msp_update(ens, states, noises, params)
+
+    # Where the batched step's time goes: 5 activity steps (300..304).
+    holder = {}
+
+    def go():
+        holder["st"], _ = ens.simulate(states, 5, noises=noises, params=params)
+    prof = profile_window(go)
+    log("[profile] sweep activity x5: " + json.dumps(prof))
+    return dict(launches=launches, step_ms=float(np.mean(step_s)) * 1e3, update_s=update_s,
+                peak_gib=peak / 2**30, syn=syn[interval - 1::interval].tolist(), msp=msp,
+                profile=prof)
+
+
+def check_batched_msp_update(ens, states, noises, params) -> dict:
+    """msp_update at the sweep's shape: the inputs of the batched step that
+    follows `states` (K x 2^20 neurons after 300 steps, their synaptic
+    input over the K edge tables, each replica's spike uniforms), as one
+    (K*n,) launch against the plain version, bit for bit; then timed
+    beside its bound."""
+    from repro_torch.core import synapses
+    from repro_torch.kernels import msp_update as kmsp
+    eng = ens.engine
+    nrn = states.neurons
+    signs = ens._signs([params.row(r) for r in range(len(noises))])
+    syn_in = synapses.synaptic_input(states.edges, nrn.spiked, signs)
+    u = torch.stack([nz.spike_uniform(states.step, eng.n) for nz in noises])
+    args = [t.reshape(-1) for t in (nrn.x, nrn.refrac, nrn.calcium, syn_in, u)]
+    consts = kmsp.constants(eng.msp_cfg)
+    got = kmsp.msp_update_cuda(*args, consts)
+    want = kmsp.msp_update_plain(*args, consts)
+    torch.cuda.synchronize()
+    n = args[0].shape[0]
+    for name, g, w in zip(("x", "refrac", "spiked", "calcium"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"sweep: msp_update kernel != plain at n={n} on {name}: "
+                                 f"{int((g != w).sum())} differ")
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    ms = graph_ms(lambda: kmsp.msp_update_cuda(*args, consts), 50)
+    plain_ms = event_ms(lambda: kmsp.msp_update_plain(*args, consts), 5)
+    bound_bytes = n * MSP_BYTES_PER_NEURON / HBM_BYTES_PER_S * 1e3
+    bound_ops = n * MSP_OPS_PER_NEURON / FP32_FLOP_PER_S * 1e3
+    bound, by = max(bound_bytes, bound_ops), bound_name(bound_bytes, bound_ops)
+    log(f"[sweep] msp_update at the sweep's shape n={n} (the inputs of step "
+        f"{states.step + 1}): kernel == plain bit for bit; {ms * 1e3:.2f} us (bound "
+        f"{bound * 1e3:.2f} us, {by}), plain {plain_ms * 1e3:.1f} us")
+    return dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def phase_m2m(seed: int, main: dict) -> dict:
+    """The main configuration with pyramid="m2m": its update times and its
+    pyramid's device time beside the segsum pyramid's (phase 4), and the
+    two pyramids against each other on the same vacancies at 2^20, at the
+    JAX package's tolerances (tests/test_extensions.py)."""
+    from repro_torch.core import multi_index as mi, octree, synapses
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.kernels import ops
+    steps = 300
+    eng = PlasticityEngine(main_positions(seed), MSPConfig.calibrated(speedup=100.0),
+                           FMMConfig(), EngineConfig(domain=MAIN_DOMAIN, pyramid="m2m"))
+    interval = eng.msp_cfg.update_interval
+    ops.reset_launches()
+    st, syn, step_s, update_s = timed_run(eng, seed, steps)
+    launches = dict(ops.launches)
+    check_run("m2m", st, syn, interval, launches,
+              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0})
+    syn_u = syn[interval - 1::interval].tolist()
+    log(f"[m2m] synapses after updates {syn_u} (segsum, phase 4: {main['syn']}); dropped "
+        f"{int(st.dropped)}; launches {launches}")
+    log(f"[m2m] step {np.mean(step_s) * 1e3:.3f} ms; connectivity update "
+        f"{[round(t, 4) for t in update_s]} s (segsum, phase 4: "
+        f"{[round(t, 4) for t in main['update_s']]} s)")
+    st, _ = eng.simulate(st, interval - 1, seed=seed)
+    torch.cuda.synchronize()
+    holder = {}
+
+    def go():
+        holder["st"], _ = eng.simulate(st, 1, seed=seed)
+    prof = profile_window(go)
+    seg_ms = main["profiles"]["update step"]["layers_device_ms"].get("update.pyramid")
+    log("[profile] m2m update step: " + json.dumps(prof))
+    by_level = lambda p: {k: v for k, v in p["layers_device_ms"].items()
+                          if k.startswith("pyramid.")}
+    log(f"[m2m] update.pyramid device time: m2m {prof['layers_device_ms'].get('update.pyramid')}"
+        f" ms, segsum (phase 4) {seg_ms} ms; by level: m2m {by_level(prof)}, segsum "
+        f"{by_level(main['profiles']['update step'])}; device operations in the update "
+        f"step: m2m {prof['device_ops']}, segsum "
+        f"{main['profiles']['update step']['device_ops']}")
+
+    # Both pyramids on the vacancies of the final state.
+    vac = lambda elems, degree: torch.clamp(
+        torch.floor(elems).to(torch.int32) - degree(st.edges, eng.n), min=0).to(torch.float32)
+    ax_vac = vac(st.neurons.ax_elems, synapses.out_degree)
+    den_vac = vac(st.neurons.den_elems, synapses.in_degree)
+    delta = eng.fmm_cfg.delta
+    build = {"segsum": octree.build_pyramid, "m2m": octree.build_pyramid_m2m}
+    times = {name: event_ms(lambda: fn(eng.tree, eng.positions, ax_vac, den_vac, delta), 5)
+             for name, fn in build.items()}
+    ref = octree.build_pyramid(eng.tree, eng.positions, ax_vac, den_vac, delta)
+    got = octree.build_pyramid_m2m(eng.tree, eng.positions, ax_vac, den_vac, delta)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    checked, worst = 0, 0.0
+    for l, (a, b) in enumerate(zip(ref, got)):
+        if not torch.allclose(b.den_w, a.den_w, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"m2m pyramid: den_w differs from segsum at level {l}")
+        if not torch.allclose(b.moms, a.moms, rtol=2e-2, atol=2e-2):
+            raise AssertionError(f"m2m pyramid: moms differ from segsum at level {l}")
+        # The represented Hermite fields agree within 5 % (where above 1e-3)
+        # at a point in each of up to 4096 boxes with vacant dendrites.
+        boxes = torch.nonzero(a.den_w >= 1).squeeze(1).cpu()
+        boxes = boxes[torch.randperm(boxes.shape[0], generator=gen)[:4096]].to(a.den_w.device)
+        side = eng.structure.box_side(l)
+        probe = a.gc[boxes] + side * torch.tensor([0.3, -0.2, 0.4], device=a.gc.device)
+        feats = mi.hermites((probe - a.gc[boxes]) / delta ** 0.5)
+        ua, ub = (feats * a.herm[boxes]).sum(-1), (feats * b.herm[boxes]).sum(-1)
+        big = ua.abs() > 1e-3
+        rel = ((ua - ub).abs() / ua.abs())[big]
+        if rel.numel():
+            worst = max(worst, float(rel.max()))
+            if bool((rel >= 0.05).any()):
+                raise AssertionError(f"m2m pyramid: Hermite field off by {float(rel.max()):.3e}"
+                                     f" at level {l}")
+        checked += int(big.sum())
+    log(f"[m2m] pyramids on the final state's vacancies: den_w within 1e-5, moms within "
+        f"2e-2, Hermite fields at {checked} box probes within {worst:.3e} relative (limit "
+        f"0.05); build time by CUDA events: segsum {times['segsum']:.3f} ms, m2m "
+        f"{times['m2m']:.3f} ms")
+    return dict(launches=launches, update_s=update_s, syn=syn_u, profile=prof,
+                build_ms=times)
+
+
+def phase_probes(seed: int) -> dict:
+    """The main configuration, 300 steps through `simulate_chunked` with the
+    spike, calcium and turnover (8 octants) probes, chunks of 100, a lesion
+    at step 150 (a 500 um sphere at the cube's centre) and a
+    CheckpointManager, in a temporary directory removed at the end.  It
+    must equal the probe-free run with the same lesion, and a restore from
+    the step-200 checkpoint must reproduce the run and its files."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import probes
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.kernels import ops
+    steps, chunk, lesion_at = 300, 100, 150
+    pos = main_positions(seed)
+    eng = PlasticityEngine(pos, MSPConfig.calibrated(speedup=100.0), FMMConfig(),
+                           EngineConfig(domain=MAIN_DOMAIN))
+    half = MAIN_DOMAIN / 2
+    region = ((pos[:, 0] > half) + 2 * (pos[:, 1] > half) + 4 * (pos[:, 2] > half)).astype(np.int64)
+    mask = np.linalg.norm(pos - half, axis=1) < 500.0
+    lesion = lambda s: probes.apply_lesion(s, mask)
+    pset = probes.ProbeSet((probes.SpikeRasterProbe(), probes.CalciumProbe(),
+                            probes.TurnoverProbe(region, 8)), chunk_size=chunk)
+    st0 = mid_growth(eng, seed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a, r1 = eng.simulate(st0, lesion_at, seed=seed)
+    a = lesion(a)
+    removed = int(r1.num_synapses[-1]) - int(a.edges.valid.sum())
+    want, r2 = eng.simulate(a, steps - lesion_at, seed=seed)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    want_rec = [torch.cat([x, y]) for x, y in zip(r1, r2)]
+    del a
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir, ck_dir = os.path.join(tmp, "probes"), os.path.join(tmp, "ckpt")
+        mgr = CheckpointManager(ck_dir)
+        ops.reset_launches()
+        t = time.perf_counter()
+        got, recs, _ = probes.simulate_chunked(eng, st0, steps, pset, seed=seed,
+                                               out_dir=out_dir,
+                                               interventions={lesion_at: lesion},
+                                               manager=mgr)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        launches = dict(ops.launches)
+        mgr.wait()                       # the checkpoints still being written
+        probed_s = time.perf_counter() - t
+        check_launches("probes", launches, {"msp_update": steps, "m2l_separable": None,
+                                            "gaussian_nbody": 0})
+        written = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp)
+                      for f in fs)
+        for f, x, y in zip(recs._fields, recs, want_rec):
+            if not torch.equal(x, y):
+                raise AssertionError(f"probes: probed run's {f} differs from the probe-free run")
+        check_same_state("probes: the probed run", got, want)
+        steps_read, tov = probes.read_trajectory(out_dir, "turnover")
+        if not np.array_equal(steps_read, np.arange(1, steps + 1)):
+            raise AssertionError(f"probes: trajectory steps {steps_read[:3]}..{steps_read[-3:]}"
+                                 f" ({steps_read.shape[0]} rows), expected 1..{steps}")
+        syn = recs.num_synapses.cpu().numpy().astype(np.int64)
+        net = tov[:, 0].sum(axis=1) - tov[:, 1].sum(axis=1)
+        dsyn = np.diff(np.r_[int(st0.edges.valid.sum()), syn])
+        dsyn[lesion_at] += removed                     # the row of step lesion_at + 1
+        if not np.array_equal(net, dsyn):
+            bad = np.nonzero(net != dsyn)[0] + 1
+            raise AssertionError(f"probes: births - deaths != change of the synapse count at "
+                                 f"steps {bad[:10].tolist()}")
+        _, calcium = probes.read_trajectory(out_dir, "calcium")
+        if not np.array_equal(calcium[-1], got.neurons.calcium.cpu().numpy()):
+            raise AssertionError("probes: the last calcium row is not the final calcium")
+        tail = os.path.join(out_dir, "chunk_000000201.npz")
+        with np.load(tail) as data:
+            before = {k: data[k].copy() for k in data.files}
+        files = sorted(os.listdir(out_dir))
+        (rs, rps), at = mgr.restore((st0, pset.init(eng.n)), 200)
+        again, _, _ = probes.simulate_chunked(eng, rs, steps - at, pset, seed=seed,
+                                              probe_state=rps, out_dir=out_dir)
+        check_same_state("probes: the run restored at step 200", again, got)
+        with np.load(tail) as data:
+            if sorted(data.files) != sorted(before) or not all(
+                    np.array_equal(data[k], before[k]) for k in before):
+                raise AssertionError("probes: the restored run wrote another last chunk")
+        if sorted(os.listdir(out_dir)) != files:
+            raise AssertionError(f"probes: files {sorted(os.listdir(out_dir))} after the "
+                                 f"restore, {files} before")
+        steps_again, _ = probes.read_trajectory(out_dir, "spikes")
+        if not np.array_equal(steps_again, np.arange(1, steps + 1)):
+            raise AssertionError("probes: rows duplicated or missing after the restore")
+        mgr.close()
+    log(f"[probes] n={eng.n}, {steps} steps in chunks of {chunk}, lesion at step {lesion_at} "
+        f"({int(mask.sum())} neurons, {mask.mean() * 100:.2f} %, {removed} synapses "
+        f"removed): probed run == probe-free run (records and state, bit for bit); restore "
+        f"at step 200 reproduces the state and the files; turnover births - deaths == "
+        f"the synapse count's change at every step; files {files}; launches {launches}")
+    log(f"[probes] probe-free {plain_s:.3f} s, probed with chunk files and checkpoints "
+        f"{probed_s:.3f} s to the last checkpoint's flush ({loop_s:.3f} s to the end of "
+        f"`simulate_chunked`): overhead {(probed_s - plain_s) / steps * 1e3:.3f} ms per step "
+        f"({(loop_s - plain_s) / steps * 1e3:.3f} without the final flush); "
+        f"{written / 2**30:.3f} GiB written")
+    return dict(plain_s=plain_s, probed_s=probed_s, loop_s=loop_s, written=written,
+                launches=launches)
+
+
+def check_same_state(tag: str, a, b) -> None:
+    for part in ("neurons", "edges"):
+        for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{tag}: {part}.{f} differs")
+    if a.step != b.step or not torch.equal(a.dropped, b.dropped):
+        raise AssertionError(f"{tag}: step {a.step} vs {b.step} or dropped {a.dropped} vs "
+                             f"{b.dropped} differs")
+
+PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
+          "sweep", "m2m", "probes")
 
 
 def main() -> int:
@@ -752,6 +1154,12 @@ def main() -> int:
             run[name] = phase_field(args.seed)
         elif name == "fig5":
             run[name] = phase_fig5()
+        elif name == "sweep":
+            run[name] = phase_sweep(args.seed, run["main"])
+        elif name == "m2m":
+            run[name] = phase_m2m(args.seed, run["main"])
+        elif name == "probes":
+            run[name] = phase_probes(args.seed)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -765,6 +1173,9 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
                     launches=launches[name], library_ms=None, **run["kernels"][name])
                for name, mod in modules.items()]
+    # msp_update also at the sweep's shape (one launch over K x 2^20 neurons).
+    kernels[0]["sweep_shape"] = dict(launches=run["sweep"]["launches"]["msp_update"],
+                                     **run["sweep"]["msp"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,13 @@
 In this system the "weights" are the simulation state and its configs.
 Both directions go through numpy arrays and plain values, so this module
 needs nothing of the JAX package: a caller flattens the JAX `SimState` into
-a dict of numpy arrays (`STATE_FIELDS`) and the config dataclasses into
-dicts (`dataclasses.asdict`).
+a dict of numpy arrays (`STATE_FIELDS`), the config dataclasses into dicts
+(`dataclasses.asdict`), `KernelParams` into a dict of its fields and a
+`ProbeState` into {"cursor", "step0", "buffers": {name: array}}.
+
+Ensemble states carry a leading (K,) axis on every field.  The port keeps
+one host step counter for all replicas (they step in lockstep), so the
+replicas' steps must agree.
 """
 from __future__ import annotations
 
@@ -14,8 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.engine import EngineConfig, SimState
+from repro_torch.core.engine import EngineConfig, KernelParams, SimState
 from repro_torch.core.msp import MSPConfig, NeuronState
+from repro_torch.core.probes import ProbeState
 from repro_torch.core.synapses import SynapseState
 from repro_torch.core.traversal import FMMConfig
 
@@ -29,34 +35,62 @@ STATE_FIELDS = tuple(NEURON_FIELDS) + tuple(EDGE_FIELDS) + ("step", "dropped")
 # can take over (the JAX defaults, and every backend: the port has no
 # backend switch, its kernels run wherever a card is).
 _ANY = object()
-_JAX_ONLY = {"backend": _ANY, "taylor_chunk": 1 << 30, "guard_delta": None}
+_JAX_ONLY = {"backend": _ANY, "taylor_chunk": 1 << 30}
 
 
 def from_jax_state(arrays: dict, device: str | torch.device = "cuda") -> SimState:
     """A port `SimState` on `device` from the JAX `SimState` fields as numpy
     arrays: x, refrac, spiked, calcium, ax_elems, den_elems, src, dst, valid,
-    step, dropped."""
+    step, dropped.  Ensemble states ((K,)-leading fields) come across whole;
+    their K step counters must be equal."""
     dev = _device.resolve(device)
     missing = set(STATE_FIELDS) - set(arrays)
     if missing:
         raise KeyError(f"from_jax_state: missing fields {sorted(missing)}")
-    t = lambda name, dt: torch.as_tensor(np.ascontiguousarray(arrays[name], dt),
-                                         device=dev)
+    steps = np.unique(np.asarray(arrays["step"]))
+    if steps.size != 1:
+        raise ValueError(f"from_jax_state: replicas at different steps {steps.tolist()}; "
+                         "the port steps an ensemble in lockstep")
+    t = lambda name, dt: torch.as_tensor(np.array(arrays[name], dt), device=dev)
     return SimState(
         neurons=NeuronState(**{k: t(k, dt) for k, dt in NEURON_FIELDS.items()}),
         edges=SynapseState(**{k: t(k, dt) for k, dt in EDGE_FIELDS.items()}),
-        step=int(arrays["step"]),
-        dropped=torch.as_tensor(int(arrays["dropped"]), dtype=torch.int64, device=dev))
+        step=int(steps[0]), dropped=t("dropped", np.int64))
 
 
 def to_numpy(state: SimState) -> dict:
-    """The state's fields as numpy arrays, named as `from_jax_state` takes
-    them."""
+    """The state's fields as numpy arrays, named and typed as
+    `from_jax_state` takes them (step and dropped int32, one per replica)."""
     out = {k: v.cpu().numpy() for k, v in state.neurons._asdict().items()}
     out.update({k: v.cpu().numpy() for k, v in state.edges._asdict().items()})
-    out["step"] = np.int32(state.step)
-    out["dropped"] = np.int32(state.dropped.item())
+    out["dropped"] = state.dropped.cpu().numpy().astype(np.int32)
+    out["step"] = np.full(out["dropped"].shape, state.step, np.int32)
     return out
+
+
+def params_from_jax(fields: dict) -> KernelParams:
+    """Port `KernelParams` (float32 numpy) from the JAX KernelParams' fields
+    as numpy arrays (scalars, or (K,) columns)."""
+    return KernelParams(*(np.asarray(fields[f], np.float32) for f in KernelParams._fields))
+
+
+def params_to_numpy(params: KernelParams) -> dict:
+    return {f: np.asarray(v, np.float32) for f, v in params._asdict().items()}
+
+
+def probe_state_from_jax(arrays: dict, device: str | torch.device = "cuda") -> ProbeState:
+    """A port `ProbeState` on `device` from {"cursor", "step0", "buffers":
+    {name: array}} (the JAX ProbeState's leaves as numpy arrays)."""
+    dev = _device.resolve(device)
+    return ProbeState(cursor=np.asarray(arrays["cursor"], np.int32),
+                      step0=np.asarray(arrays["step0"], np.int32),
+                      buffers={k: torch.as_tensor(np.array(v), device=dev)
+                               for k, v in arrays["buffers"].items()})
+
+
+def probe_state_to_numpy(ps: ProbeState) -> dict:
+    return {"cursor": np.asarray(ps.cursor, np.int32), "step0": np.asarray(ps.step0, np.int32),
+            "buffers": {k: v.cpu().numpy() for k, v in ps.buffers.items()}}
 
 
 def _port_config(cls, fields: dict):

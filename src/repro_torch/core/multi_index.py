@@ -122,3 +122,9 @@ def hermite_big(x: torch.Tensor, p: int = DEFAULT_ORDER) -> torch.Tensor:
     enumeration: what the dense M2L translation gathers from.
     (..., 3) -> (..., (2p-1)**3)."""
     return hermites(x, 2 * p - 1)
+
+
+def hermite_polys_big(x: torch.Tensor, p: int = DEFAULT_ORDER) -> torch.Tensor:
+    """H_gamma(x) (no envelope) for gamma up to order 2(p-1), in the
+    order-(2p-1) enumeration.  (..., 3) -> (..., (2p-1)**3)."""
+    return hermite_polys(x, 2 * p - 1)

@@ -65,19 +65,25 @@ def in_degree(state: SynapseState, n: int) -> torch.Tensor:
 
 def synaptic_input(state: SynapseState, spiked: torch.Tensor,
                    sign: torch.Tensor | None = None) -> torch.Tensor:
-    """(n,) signed count of spiking presynaptic partners (dendrite side).
+    """(..., n) signed count of spiking presynaptic partners (dendrite side).
 
-    sign: optional (n,) +1/-1 per presynaptic neuron (None = all excitatory,
-    the paper's setting)."""
-    n = spiked.shape[0]
-    slots = torch.nonzero(state.valid).squeeze(1)
-    src = state.src[slots]
-    live = spiked[src]
-    src, dst = src[live], state.dst[slots][live]
+    The tables may carry leading axes, (..., E) with spikes (..., n): an
+    ensemble's K tables are then summed in one pass, each slot's neuron ids
+    offset by its table's row.  sign: optional +1/-1 per presynaptic neuron,
+    (..., n) (None = all excitatory, the paper's setting)."""
+    n = spiked.shape[-1]
+    slots = torch.nonzero(state.valid.reshape(-1)).squeeze(1)
+    src = state.src.reshape(-1)[slots]
+    dst = state.dst.reshape(-1)[slots]
+    if state.valid.dim() > 1:
+        base = torch.div(slots, state.valid.shape[-1], rounding_mode="floor") * n
+        src, dst = src + base, dst + base
+    live = spiked.reshape(-1)[src]
+    src, dst = src[live], dst[live]
     contrib = torch.ones(src.shape, dtype=torch.float32, device=spiked.device) \
-        if sign is None else sign[src]
-    out = torch.zeros((n,), dtype=torch.float32, device=spiked.device)
-    return out.index_add_(0, dst, contrib)
+        if sign is None else sign.reshape(-1)[src]
+    out = torch.zeros((spiked.numel(),), dtype=torch.float32, device=spiked.device)
+    return out.index_add_(0, dst, contrib).reshape(spiked.shape)
 
 
 def _sorted_order(seg: torch.Tensor, prio: torch.Tensor) -> torch.Tensor:

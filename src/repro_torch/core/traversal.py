@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch.profiler import record_function
@@ -37,6 +37,10 @@ class FMMConfig:
     # FGT validity guard: expansions only on levels whose box side is at
     # most size_guard * sqrt(delta); larger boxes use the exact direct tier.
     size_guard: float = 0.5
+    # The delta the guard reads when sigma is a per-replica knob (ensemble
+    # sweeps set it to the smallest delta of the sweep, so the guard is
+    # conservative for every replica); None = `delta` itself.
+    guard_delta: Optional[float] = None
 
     def __post_init__(self):
         if self.kernel_scale not in ("sigma_squared", "sigma"):
@@ -97,7 +101,8 @@ def descend(tree: OctreeTensors, levels: List[LevelData], cfg: FMMConfig,
         parent_tgt = tgt[occ >> 3]                                # (O,)
         base = torch.clamp(parent_tgt, min=0)
         tc = (base[:, None] << 3) + arange8[None, :]              # (O,8)
-        valid = structure.box_side(l + 1) <= cfg.size_guard * math.sqrt(cfg.delta)
+        gd = cfg.guard_delta if cfg.guard_delta is not None else cfg.delta
+        valid = structure.box_side(l + 1) <= cfg.size_guard * math.sqrt(gd)
         tgt_den_w = nxt.den_w[tc]
         log_mass = _tier_log_masses(
             nxt.ax_w[occ], nxt.ax_c[occ], nxt.gc[occ], nxt.moms[occ],

@@ -207,8 +207,10 @@ def test_convert_round_trip_and_configs():
     # The JAX backend switch has no counterpart: the port's kernels run
     # wherever a card is, whichever backend the JAX run used.
     assert convert.configs_from_jax(jm, jf, {**je, "backend": "pallas"})[2] == ENGINE_CFG
-    with pytest.raises(NotImplementedError):
-        convert.configs_from_jax(jm, {**jf, "guard_delta": 1.0}, je)
+    # guard_delta (the static guard of a sigma sweep) is ported and carried.
+    fmm = convert.configs_from_jax(jm, {**jf, "guard_delta": 360000.0}, je)[1]
+    assert fmm == dataclasses.replace(FMM_CFG, guard_delta=360000.0)
+    assert dataclasses.asdict(fmm)["guard_delta"] == 360000.0
 
 
 def test_simulate_rejects_unported_arguments():
@@ -216,6 +218,38 @@ def test_simulate_rejects_unported_arguments():
     eng = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, ENGINE_CFG, device="cpu")
     st = convert.from_jax_state(arrays, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.simulate(st, 1, params=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.simulate(st, 1, n_active=8)
+
+
+def test_simulate_runs_with_params():
+    """params= is ported: per-run KernelParams steer the run (here sigma,
+    c1, c2 and a quarter of the neurons inhibitory) and leave the state's
+    layout as it was."""
+    pos, arrays = _mid_growth(64, 1)
+    eng = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, ENGINE_CFG, device="cpu")
+    st0 = convert.from_jax_state(arrays, "cpu")
+    params = engine.KernelParams(*(np.float32(v) for v in (900.0, 4.0, 4.0, 0.25)))
+    st, recs = eng.simulate(st0, 200, seed=3, params=params)
+    plain, precs = eng.simulate(st0, 200, seed=3)
+    assert st.step == 200 and recs.num_synapses.shape == (200,)
+    assert int(recs.num_synapses[-1]) > 0
+    assert not torch.equal(st.edges.dst, plain.edges.dst)
+    assert eng._runtime_fmm_cfg(params).guard_delta == FMM_CFG.delta
+    assert int((eng._runtime_sign(params) < 0).sum()) == 16
+
+
+def test_step_do_update_overrides_the_schedule():
+    """step(do_update=) decides the connectivity update instead of the step
+    counter: False skips the update the schedule asks for at step 100,
+    True runs one at a step the schedule skips."""
+    pos, arrays = _mid_growth(64, 2)
+    eng = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, ENGINE_CFG, device="cpu")
+    noise = engine.GeneratorNoise(1, torch.device("cpu"))
+    st = convert.from_jax_state(arrays, "cpu")._replace(step=99)
+    skipped, rec = eng.step(st, noise, do_update=False)
+    assert skipped.step == 100 and skipped.edges.valid is st.edges.valid
+    assert int(rec.num_synapses) == 0
+    scheduled, rec = eng.step(st, noise)
+    assert int(rec.num_synapses) > 0
+    forced, rec = eng.step(st._replace(step=42), noise, do_update=True)
+    assert forced.step == 43 and int(rec.num_synapses) > 0

@@ -201,3 +201,48 @@ def test_dendrite_pyramid_on_card_equals_the_full_pyramids_dendrite_sums(cuda_de
     for lv, fl in zip(got, full):
         assert torch.equal(lv.den_w, fl.den_w)
         assert torch.equal(lv.den_c, fl.den_c)
+
+
+@pytest.mark.gpu
+def test_batched_msp_update_equals_per_replica_launches(cuda_device):
+    """The ensemble's one launch over a (K*n,) view of (K, n) state equals
+    its plain version on the same input and K launches over the replicas'
+    rows, bit for bit (n = 2^20, K = 4)."""
+    k, n = 4, 1 << 20
+    consts = kmsp.constants(MSPConfig.calibrated(speedup=100.0))
+    rows = [_msp_inputs(n, 100 + r, cuda_device) for r in range(k)]
+    batched = [torch.stack(ts).reshape(-1) for ts in zip(*rows)]     # (K*n,) each
+    got = kmsp.msp_update_cuda(*batched, consts)
+    for g, w in zip(got, kmsp.msp_update_plain(*batched, consts)):
+        assert torch.equal(g, w)
+    for r in range(k):
+        want = kmsp.msp_update_cuda(*rows[r], consts)
+        for g, w in zip(got, want):
+            assert torch.equal(g.reshape(k, n)[r], w)
+
+
+@pytest.mark.gpu
+def test_m2m_pyramid_on_card_equals_cpu(cuda_device):
+    """build_pyramid_m2m on the card against the CPU (n = 2^16, depth 5):
+    counts exactly, the rest to rtol 1e-5 plus 1e-5 x each array's max; and
+    Barnes-Hut's m2m pyramid holds its den_w and den_c bit for bit."""
+    from repro_torch.core import octree
+    n, domain = 1 << 16, 1000.0
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0, domain, (n, 3)).astype(np.float32)
+    ax = rng.integers(0, 6, n).astype(np.float32)
+    den = rng.integers(0, 6, n).astype(np.float32)
+    structure = octree.build_structure(pos, domain)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(a).to(dev)
+        tree = octree.to_device(structure, dev)
+        out[dev.type] = (octree.build_pyramid_m2m(tree, t(pos), t(ax), t(den), FMMConfig().delta),
+                         octree.build_dendrite_pyramid_m2m(tree, t(pos), t(den)))
+    (card, card_bh), (cpu, _) = out["cuda"], out["cpu"]
+    for lg, lc, lb in zip(card, cpu, card_bh):
+        assert torch.equal(lg.den_w.cpu(), lc.den_w) and torch.equal(lg.ax_w.cpu(), lc.ax_w)
+        for f in ("den_c", "ax_c", "herm", "moms"):
+            a, b = getattr(lg, f).cpu(), getattr(lc, f)
+            assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * b.abs().max()).all()), f
+        assert torch.equal(lb.den_w, lg.den_w) and torch.equal(lb.den_c, lg.den_c)

@@ -34,7 +34,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "msp_update.py", "m2l_pair.py", "gaussian_nbody.py",
-            "barnes_hut.py", "direct.py", "analysis.py", "chip_smoke.py"} <= names
+            "barnes_hut.py", "direct.py", "analysis.py", "ensemble.py", "probes.py",
+            "manager.py", "sweep.py", "chip_smoke.py"} <= names
 
 
 @pytest.fixture
@@ -56,7 +57,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
     assert device.resolve("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("field,value", [("pyramid", "m2m"), ("rng", "counter")])
+@pytest.mark.parametrize("field,value", [("rng", "counter")])
 def test_unported_options_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("method", ["fmm", "barnes_hut"])
+def test_m2m_pyramid_constructs_and_builds(method):
+    """EngineConfig(pyramid="m2m") is ported: it constructs, and an engine
+    built with it runs a connectivity update on the CPU."""
+    cfg = engine.EngineConfig(pyramid="m2m", method=method)
+    rng = np.random.default_rng(0)
+    eng = engine.PlasticityEngine(rng.uniform(0, 1000.0, (64, 3)).astype(np.float32),
+                                  engine_cfg=cfg, device="cpu")
+    st = eng.init_state()
+    st = st._replace(neurons=st.neurons._replace(ax_elems=st.neurons.ax_elems + 3,
+                                                 den_elems=st.neurons.den_elems + 3))
+    st = eng.connectivity_update(st, noise.GeneratorNoise(0, torch.device("cpu")), 0)
+    assert int(st.edges.valid.sum()) > 0
