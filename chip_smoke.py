@@ -18,7 +18,9 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
 3. small   — each search method (fmm, barnes_hut, direct) at N = 256 on the
              card (kernels) and on the CPU (plain versions) from the same
              draws: identical trajectories (this also loads the paths' CUDA
-             modules before the timed phases);
+             modules before the timed phases); and pinned served traffic at
+             a pool of 256 (8 sessions, 4 slots, evictions and restores):
+             every session identical on the card and the CPU;
 4. main    — `PlasticityEngine.simulate` with method="fmm" at 2^20 neurons
              (positions U(0, 2190 um)^3, about 1e5 neurons/mm^3), paper
              FMMConfig (c1 = c2 = 70, sigma = 750), calibrated MSP at
@@ -50,12 +52,21 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              calcium and turnover probes, a lesion at step 150 and a
              CheckpointManager: equal to the probe-free run, reproduced by
              a restore from step 200, probe overhead (to the last
-             checkpoint's flush) and bytes written.
+             checkpoint's flush) and bytes written;
+13. serve  — `SimulationService` over phase 4's 2^20-neuron pool, K = 4
+             slots, rounds of 100 steps, spike and calcium probes: pinned
+             TGI-style traffic (6 sessions of 2^20/3 to 2^20 neurons, budgets
+             of 1000-2000 steps with ragged tails, idle gaps that evict and
+             restore) replayed to the end; three sessions, two of them
+             evicted and restored, equal their isolated runs on the card bit
+             for bit.  Session-steps per second, round time and its split,
+             eviction and restore costs and bytes, occupancy, peak memory
+             and the padding tax.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
-m2m, probes) zeroes the launch counts just before it and reads them just
-after.  The script prints the card's
+m2m, probes, serve) zeroes the launch counts just before it and reads them
+just after.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -455,7 +466,7 @@ def profile_window(fn) -> dict:
     # ranges span idle gaps too and are left out.
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CPU) / 1e3
-    ranges = ("step", "update", "pyramid", "traversal", "bh", "direct")
+    ranges = ("step", "update", "pyramid", "traversal", "bh", "direct", "slots", "serve")
     layers = {e.key: round(e.device_time_total / 1e3, 3) for e in events
               if e.device_type == DeviceType.CPU and e.key.split(".")[0] in ranges}
     # Kernels, copies and memsets run on the card (the ranges' device-side
@@ -520,6 +531,47 @@ def phase_small(seed: int) -> None:
         log(f"[small] {tag}, 300 steps: card (kernels) == CPU (plain versions): "
             f"records, edges and calcium identical; synapses {int(rc.num_synapses[-1])}")
     small_ensemble_and_m2m(seed, pos)
+    small_serve()
+
+
+def small_serve(pool: int = 256) -> None:
+    """Pinned served traffic (seed 6, 8 sessions, 4 slots, rounds of 100, the
+    CPU tests' scenario at a pool of 256) on the card and on the CPU: the
+    same events, and every session's records, final state and probe rows
+    identical."""
+    import tempfile
+    from repro_torch.core.probes import CalciumProbe, ProbeSet, SpikeRasterProbe
+    from repro_torch.launch.serve import build_service, default_traffic, replay_traffic
+    traffic = default_traffic(seed=6, num_sessions=8, pool_size=pool, round_steps=100,
+                              max_rounds_of_work=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory(prefix="serve_small_") as tmp:
+            pset = ProbeSet([SpikeRasterProbe(), CalciumProbe()], chunk_size=300)
+            svc = build_service(pool, num_slots=4, round_steps=100, speedup=400.0, seed=42,
+                                checkpoint_dir=tmp, probes=pset, device=dev)
+            events = replay_traffic(svc, traffic)
+            out[dev] = events, {r.session_id: svc.result(r.session_id) for _, r in traffic}
+            svc.close()
+    (ev_g, res_g), (ev_c, res_c) = out["cuda"], out["cpu"]
+    if ev_g != ev_c:
+        raise AssertionError(f"served N={pool}: card and CPU events differ: {ev_g} vs {ev_c}")
+    if not any(e.startswith("restored") for e in ev_c):
+        raise AssertionError(f"served N={pool}: the traffic restored no session")
+    for sid, c in res_c.items():
+        g = res_g[sid]
+        pairs = [*zip(c.records._fields, g.records, c.records),
+                 *zip(c.final_state.neurons._fields, g.final_state.neurons, c.final_state.neurons),
+                 *zip(c.final_state.edges._fields, g.final_state.edges, c.final_state.edges),
+                 *((k, g.probe_rows[k], v) for k, v in (c.probe_rows or {}).items())]
+        for f, a, b in pairs:
+            if not torch.equal(a, b):
+                raise AssertionError(f"served N={pool} {sid}: card and CPU differ in {f}")
+    syn = {sid: int(r.records.num_synapses[-1]) for sid, r in res_c.items()}
+    log(f"[small] served N={pool}, 4 slots, {len(traffic)} sessions "
+        f"({sum(e.startswith('restored') for e in ev_c)} restores): card (kernels) == CPU "
+        f"(plain versions) for every session: events, records, final state, probe rows; "
+        f"synapses {syn}")
 
 
 def small_ensemble_and_m2m(seed: int, pos: np.ndarray) -> None:
@@ -890,7 +942,7 @@ def check_batched_msp_update(ens, states, noises, params) -> dict:
     nrn = states.neurons
     signs = ens._signs([params.row(r) for r in range(len(noises))])
     syn_in = synapses.synaptic_input(states.edges, nrn.spiked, signs)
-    u = torch.stack([nz.spike_uniform(states.step, eng.n) for nz in noises])
+    u = torch.stack([nz.spike_uniform(states.step, eng.rows) for nz in noises])
     args = [t.reshape(-1) for t in (nrn.x, nrn.refrac, nrn.calcium, syn_in, u)]
     consts = kmsp.constants(eng.msp_cfg)
     got = kmsp.msp_update_cuda(*args, consts)
@@ -1102,6 +1154,216 @@ def phase_probes(seed: int) -> dict:
                 launches=launches)
 
 
+SERVE_SLOTS, SERVE_ROUND = 4, 100
+# Traffic seed of the serve phase: a seed of `default_traffic(6 sessions,
+# 2^20 pool, rounds of 100, up to 20 rounds of work)` whose budgets all lie
+# in 1000-2000 steps with ragged tails and whose schedule evicts three
+# sessions, two of them recording probes, and restores each into another
+# slot.
+SERVE_SEED = 296
+SERVE_COMPARE = ("s000", "s005", "s002")   # two evicted and restored, one not
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_serve(seed: int, sweep: dict) -> dict:
+    """The simulation service over the main configuration's 2^20 positions:
+    K = 4 slots, rounds of 100 steps, spike and calcium probes; the pinned
+    traffic replayed to the end, timed by round, eviction and restore; then
+    SERVE_COMPARE's sessions against isolated runs on the card, bit for bit."""
+    import tempfile
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.probes import CalciumProbe, ProbeSet, SpikeRasterProbe
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import default_traffic, occupancy_histogram, replay_traffic
+    from repro_torch.serve import SimulationService
+    traffic = default_traffic(seed=SERVE_SEED, num_sessions=6, pool_size=MAIN_N,
+                              round_steps=SERVE_ROUND, max_rounds_of_work=20)
+    reqs = {r.session_id: r for _, r in traffic}
+    budgets = [r.num_steps for r in reqs.values()]
+    if not (min(budgets) >= 1000 and max(budgets) <= 2000
+            and any(b % SERVE_ROUND for b in budgets)):
+        raise AssertionError(f"serve: traffic budgets {budgets} are not 1000-2000 with a "
+                             f"ragged tail")
+    chunk = max(r.num_steps for r in reqs.values() if r.record_probes)
+    log("[serve] traffic: " + "; ".join(
+        f"{r.session_id} round {a} n={r.n_neurons} steps={r.num_steps}"
+        + (f" idle_after={r.idle_after} for {r.idle_rounds}" if r.idle_after else "")
+        + (" +probes" if r.record_probes else "") for a, r in traffic))
+    log_rounds, evicts, restores, finishes, updates = [], [], [], [], []
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    class TimedService(SimulationService):
+        """Times every round, eviction, restore and finish (synchronised)."""
+        profile = None
+
+        def run_round(self):
+            first = len(updates), len(evicts), len(restores), len(finishes)
+            ran = len(self.occupancy_log)
+            # One round that starts with every slot live, past the cold start.
+            profiled = (self.batcher.live == self.num_slots and self.profile is None
+                        and self.round_idx >= 10)
+            if profiled:
+                holder = {}
+                self.profile = profile_window(
+                    lambda: holder.setdefault("ev", SimulationService.run_round(self)))
+                ev, dt = holder["ev"], self.profile["wall_ms"] / 1e3
+            else:
+                ev, dt = sync_time(super().run_round)
+            part = lambda xs, i: sum(x[1] for x in xs[first[i]:])
+            log_rounds.append(dict(
+                idx=self.round_idx - 1, wall=dt, profiled=profiled,
+                live=self.occupancy_log[-1] if len(self.occupancy_log) > ran else 0,
+                update=part(updates, 0), evict=part(evicts, 1), restore=part(restores, 2),
+                finish=part(finishes, 3)))
+            return ev
+
+        def _evict(self, sid, s, slot):
+            _, dt = sync_time(lambda: super(TimedService, self)._evict(sid, s, slot))
+            evicts.append((sid, dt, dir_bytes(os.path.join(self.checkpoint_dir, sid))))
+
+        def _restore(self, sid, s, slot):
+            _, dt = sync_time(lambda: super(TimedService, self)._restore(sid, s, slot))
+            restores.append((sid, dt, dir_bytes(os.path.join(self.checkpoint_dir, sid))))
+
+        def _finish(self, s, slot):
+            _, dt = sync_time(lambda: super(TimedService, self)._finish(s, slot))
+            finishes.append((s.request.session_id, dt))
+
+    msp_cfg, fmm_cfg = MSPConfig.calibrated(speedup=100.0), FMMConfig()
+    pool = main_positions(seed)
+    with tempfile.TemporaryDirectory(prefix="serve_") as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        pset = ProbeSet([SpikeRasterProbe(), CalciumProbe()], chunk_size=chunk)
+        svc, setup_s = sync_time(lambda: TimedService(
+            pool, msp_cfg, fmm_cfg, EngineConfig(domain=MAIN_DOMAIN), num_slots=SERVE_SLOTS,
+            round_steps=SERVE_ROUND, checkpoint_dir=tmp, probes=pset))
+        inner = svc.engine.connectivity_update
+
+        def timed_update(*a, **k):
+            out, dt = sync_time(lambda: inner(*a, **k))
+            updates.append((k.get("n_active"), dt))
+            return out
+        svc.engine.connectivity_update = timed_update
+        ops.reset_launches()
+        events, replay_s = sync_time(lambda: replay_traffic(svc, traffic))
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        results = {sid: svc.result(sid) for sid in reqs}
+        hist = occupancy_histogram(svc)
+        rounds = len(svc.occupancy_log)
+        engine_cfg = svc.engine_cfg
+        profile = svc.profile
+        svc.close()
+        del svc
+    torch.cuda.empty_cache()
+    for e in events:
+        log(f"[serve]   {e}")
+
+    # What the phase must have covered.
+    first_slot = {e.split()[1]: e.split()[2] for e in events if e.startswith("admitted")}
+    moved = [e for e in events if e.startswith("restored")
+             and first_slot[e.split()[1]] != e.split()[2]]
+    evicted = {e.split()[1] for e in events if e.startswith("evicted")}
+    if not evicts or not moved:
+        raise AssertionError("serve: no eviction, or no restore into another slot")
+    if max(hist) != SERVE_SLOTS:
+        raise AssertionError(f"serve: no round at full occupancy: {hist}")
+    if not any(reqs[sid].num_steps % SERVE_ROUND for sid in reqs):
+        raise AssertionError("serve: no session finished mid-round")
+    check_launches("serve", launches, {"msp_update": rounds * SERVE_ROUND,
+                                       "m2l_separable": None, "gaussian_nbody": 0})
+    for sid, res in results.items():
+        syn = int(res.records.num_synapses[-1])
+        if reqs[sid].num_steps >= 1500 and syn <= 0:
+            raise AssertionError(f"serve: {sid} ({reqs[sid].num_steps} steps) formed no synapse")
+        if int(res.final_state.dropped) != 0:
+            raise AssertionError(f"serve: {sid} overflowed its edge table")
+
+    # Every compared session against an isolated run of its size on the card.
+    compared = []
+    for sid in SERVE_COMPARE:
+        req, res = reqs[sid], results[sid]
+        n = req.n_neurons
+        eng = PlasticityEngine(pool[:n], msp_cfg, fmm_cfg, engine_cfg)
+        probes = (ProbeSet([SpikeRasterProbe(), CalciumProbe()], chunk_size=req.num_steps)
+                  if req.record_probes else None)
+        out, iso_s = sync_time(lambda: eng.simulate(eng.init_state(), req.num_steps,
+                                                    seed=req.seed, probes=probes))
+        st, rec = out[0], out[1]
+        cap = eng.edge_capacity
+        pairs = [*zip(rec._fields, res.records, rec),
+                 *((f, a[:n], b) for f, a, b in zip(st.neurons._fields,
+                                                    res.final_state.neurons, st.neurons)),
+                 *((f, a[:cap], b) for f, a, b in zip(st.edges._fields,
+                                                      res.final_state.edges, st.edges))]
+        if probes is not None:
+            pairs += [(name, res.probe_rows[name][:, :n], buf)
+                      for name, buf in out[2].buffers.items()]
+        for f, a, b in pairs:
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"serve: {sid} differs from its isolated run in {f}")
+        tails = [t[n:] for t in res.final_state.neurons] + [res.final_state.edges.valid[cap:]]
+        tails += [r[:, n:] for r in (res.probe_rows or {}).values()]
+        if any(bool(t.any()) for t in tails) or res.final_state.step != st.step:
+            raise AssertionError(f"serve: {sid} pad rows not inert, or its step differs")
+        compared.append(dict(sid=sid, n=n, steps=req.num_steps, evicted=sid in evicted,
+                             probes=req.record_probes, isolated_s=iso_s,
+                             synapses=int(rec.num_synapses[-1])))
+        del eng, out, st, rec
+        torch.cuda.empty_cache()
+    if len(compared) < 2 or not any(c["evicted"] for c in compared):
+        raise AssertionError("serve: fewer than two sessions compared, or none evicted")
+
+    session_steps = sum(budgets)
+    computed = rounds * SERVE_ROUND * SERVE_SLOTS * MAIN_N
+    occupied = sum(r["live"] for r in log_rounds if r["live"]) * SERVE_ROUND * MAIN_N
+    requested = sum(r.n_neurons * r.num_steps for r in reqs.values())
+    full = [r for r in log_rounds if r["live"] == SERVE_SLOTS and not r["profiled"]
+            and not (r["evict"] or r["restore"] or r["finish"])]
+    quiet = [r for r in full if r["update"] > 0]
+    act_ms = [(r["wall"] - r["update"]) / SERVE_ROUND * 1e3 for r in quiet]
+    upd_s = [u for _, u in updates]
+    out = dict(launches=launches, rounds=rounds, replay_s=replay_s, setup_s=setup_s,
+               session_steps=session_steps, steps_per_s=session_steps / replay_s,
+               round_s=[round(r["wall"], 4) for r in log_rounds],
+               full_round_s=float(np.mean([r["wall"] for r in quiet])) if quiet else None,
+               activity_step_ms=float(np.mean(act_ms)) if act_ms else None,
+               update_s=float(np.median(upd_s)), update_s_range=(min(upd_s), max(upd_s)),
+               evicts=evicts, restores=restores, finishes=finishes, hist=hist,
+               peak_gib=peak / 2**30, padding_tax=computed / requested,
+               occupied_tax=occupied / requested, compared=compared, profile=profile)
+    log(f"[serve] {len(reqs)} sessions, {session_steps} session-steps in {rounds} rounds, "
+        f"{replay_s:.2f} s: {out['steps_per_s']:.1f} session-steps/s (set-up "
+        f"{setup_s:.2f} s); occupancy histogram {hist}; launches {launches}")
+    log(f"[serve] full-occupancy rounds without events: {len(quiet)}, "
+        f"{out['full_round_s']} s each: activity step {out['activity_step_ms']} ms "
+        f"(phase 10's batched step {sweep['step_ms']:.3f} ms), updates per slot (median) "
+        f"{out['update_s']:.4f} s (range {min(upd_s):.4f}-{max(upd_s):.4f}; phase 10 "
+        f"{[round(t / SERVE_SLOTS, 4) for t in sweep['update_s']]} a replica); round times "
+        f"{out['round_s']}")
+    log(f"[serve] evictions (session, s, bytes on disk): {evicts}; restores (session, s, "
+        f"bytes read): {restores}; finishes (session, s to harvest): "
+        f"{[(sid, round(t, 3)) for sid, t in finishes]}")
+    log(f"[serve] peak memory {out['peak_gib']:.2f} GiB; padding tax {out['padding_tax']:.4f} "
+        f"(row-steps computed / requested; {out['occupied_tax']:.4f} over occupied slots)")
+    log(f"[serve] bit for bit equal to their isolated card runs (records, neuron rows, edge "
+        f"prefix, probe rows; pad rows inert): {compared}")
+    log("[profile] serve full round: " + json.dumps(profile))
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -1112,7 +1374,7 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes")
+          "sweep", "m2m", "probes", "serve")
 
 
 def main() -> int:
@@ -1160,6 +1422,8 @@ def main() -> int:
             run[name] = phase_m2m(args.seed, run["main"])
         elif name == "probes":
             run[name] = phase_probes(args.seed)
+        elif name == "serve":
+            run[name] = phase_serve(args.seed, run["sweep"])
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -1176,6 +1440,9 @@ def main() -> int:
     # msp_update also at the sweep's shape (one launch over K x 2^20 neurons).
     kernels[0]["sweep_shape"] = dict(launches=run["sweep"]["launches"]["msp_update"],
                                      **run["sweep"]["msp"])
+    # And both on the serve phase's path.
+    for k in kernels[:2]:
+        k["serve_launches"] = run["serve"]["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

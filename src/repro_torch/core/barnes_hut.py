@@ -14,8 +14,10 @@ formulation (Eq. 1): one Gumbel-max draw over all n candidates per neuron.
 Profiler ranges: `bh.descend` and `traversal.leaf_resolve` (Barnes-Hut),
 `direct.find` (direct).
 
-Single device with batched draws: the reference's `row_start` (sharded rows)
-and `rng="counter"` belong to ROADMAP.md Queue 1 items 10-11 and raise.
+Single device: the reference's `row_start` (sharded rows) belongs to
+ROADMAP.md Queue 1 item 11 and raises.  The draws name their logical
+indices (`core.noise`): neuron row x child for the descent, row x column
+for the direct draw (`EngineConfig.rng` selects the noise object).
 """
 from __future__ import annotations
 
@@ -29,25 +31,23 @@ from repro_torch.core.octree import DendriteLevel, OctreeTensors
 from repro_torch.core.traversal import FMMConfig, NEG_INF, resolve_leaf_partners
 
 
-def _batched_only(row_start, rng: str) -> None:
+def _single_device(row_start) -> None:
     if row_start is not None:
         raise NotImplementedError(
             "row_start (the sharded find phase) is not ported yet "
             "(ROADMAP.md Queue 1 item 11)")
-    if rng != "batched":
-        raise NotImplementedError(
-            "rng='counter' is not ported yet (ROADMAP.md Queue 1 item 10)")
 
 
 def descend_barnes_hut(tree: OctreeTensors, levels: List[DendriteLevel],
                        positions: torch.Tensor, cfg: FMMConfig, noise, step: int,
-                       *, row_start=None, rng: str = "batched") -> torch.Tensor:
+                       *, row_start=None) -> torch.Tensor:
     """Per-neuron stochastic descent.  Returns the (n,) int64 target leaf
     box of every neuron."""
-    _batched_only(row_start, rng)
+    _single_device(row_start)
     structure = tree.structure
     n = structure.n
     arange8 = torch.arange(8, dtype=torch.int64, device=positions.device)
+    rows = torch.arange(n, dtype=torch.int64, device=positions.device)
     box = torch.zeros((n,), dtype=torch.int64, device=positions.device)
     for l in range(structure.depth):
         nxt = levels[l + 1]
@@ -56,7 +56,7 @@ def descend_barnes_hut(tree: OctreeTensors, levels: List[DendriteLevel],
         d2 = ((positions[:, None, :] - nxt.den_c[child]) ** 2).sum(dim=-1)
         logw = torch.log(torch.clamp(den_w, min=ex.LOG_EPS)) - d2 / cfg.delta
         logw = torch.where(den_w > 0, logw, NEG_INF)
-        g = noise.descent_gumbel(step, l + 1, n)
+        g = noise.descent_gumbel(step, l + 1, rows)
         box = (box << 3) + torch.argmax(logw + g, dim=-1)           # first max
     return box
 
@@ -64,12 +64,12 @@ def descend_barnes_hut(tree: OctreeTensors, levels: List[DendriteLevel],
 def find_partners_bh(tree: OctreeTensors, levels: List[DendriteLevel],
                      positions: torch.Tensor, ax_vac: torch.Tensor,
                      den_vac: torch.Tensor, cfg: FMMConfig, noise, step: int,
-                     *, row_start=None, rng: str = "batched") -> torch.Tensor:
+                     *, row_start=None) -> torch.Tensor:
     """Barnes-Hut partner choice: per-neuron descent, then the exact leaf
     resolve.  Returns (n,) int32 partners (-1 = none)."""
     with record_function("bh.descend"):
         tgt = descend_barnes_hut(tree, levels, positions, cfg, noise, step,
-                                 row_start=row_start, rng=rng)
+                                 row_start=row_start)
     with record_function("traversal.leaf_resolve"):
         my_tgt = torch.where((ax_vac >= 1.0) & (levels[0].den_w[0] > 0), tgt, -1)
         return resolve_leaf_partners(tree, positions, ax_vac, den_vac, my_tgt, cfg,
@@ -77,14 +77,14 @@ def find_partners_bh(tree: OctreeTensors, levels: List[DendriteLevel],
 
 
 def find_partners_direct(positions: torch.Tensor, ax_vac: torch.Tensor,
-                         den_vac: torch.Tensor, cfg: FMMConfig, noise, step: int,
-                         rng: str = "batched") -> torch.Tensor:
+                         den_vac: torch.Tensor, cfg: FMMConfig, noise, step: int
+                         ) -> torch.Tensor:
     """O(n^2) exact partner choice.  Returns (n,) int32 partners (-1 = none).
 
     The squared distances are summed coordinate by coordinate, in the
     reference's order, so no (n, n, 3) temporary is built."""
-    _batched_only(None, rng)
     n = positions.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=positions.device)
     with record_function("direct.find"):
         d2 = (positions[:, None, 0] - positions[None, :, 0]) ** 2
         d2 += (positions[:, None, 1] - positions[None, :, 1]) ** 2
@@ -94,7 +94,7 @@ def find_partners_direct(positions: torch.Tensor, ax_vac: torch.Tensor,
         mask = (den_vac > 0)[None, :].expand(n, n).clone()
         mask.fill_diagonal_(False)                                  # no autapses
         logw = torch.where(mask, logw, NEG_INF)
-        logw += noise.direct_gumbel(step, n)
+        logw += noise.direct_gumbel(step, rows, n)
         partner = torch.argmax(logw, dim=-1).to(torch.int32)
         ok = (ax_vac >= 1.0) & mask.any(dim=-1)
         return torch.where(ok, partner, -1)

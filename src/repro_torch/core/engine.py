@@ -26,7 +26,24 @@ Each layer runs inside a `torch.profiler.record_function` range (`step.*`,
 `update.*`, `traversal.*`, `bh.descend`, `direct.find`), so a profile
 attributes device time to layers.
 Every random draw comes from a noise object (`core.noise`), by default the
-generator-backed one seeded from `seed`.
+one `EngineConfig.rng` names, seeded from `seed`: "batched" draws whole
+arrays from a generator, "counter" (`core.streams`) keys every value by its
+logical index.
+
+Padded subdomains (`n_active`, the serving layer's slots): a session of m
+neurons runs in the rows of an n-neuron pool.  Pad rows are made inert
+after every activity step and the records count the first m rows only
+(inv = 1/m); with counter draws the active rows then see what an isolated
+engine of the first m positions sees.  The connectivity update of a padded
+state runs on its active prefix, through `prefix_engine(m)`: the octree of
+the first m positions at this engine's depth, the first m neuron rows and
+the first m * edge_capacity_per_neuron edge slots (so inserts are capped
+there).  That is the isolated engine's update itself.  The reference
+instead updates over the whole pool, with pad rows holding no vacancy; the
+port does not, because every box of the pool's octree above the leaves sums
+a run wider than the prefix's, with pad rows inside it, so its float sums
+can round differently from the isolated tree's and, at 2^20 neurons, flip
+an argmax now and then.
 """
 from __future__ import annotations
 
@@ -40,7 +57,7 @@ from torch.profiler import record_function
 from repro_torch import device as _device
 from repro_torch.core import barnes_hut, msp, octree, synapses, traversal
 from repro_torch.core.msp import MSPConfig, NeuronState
-from repro_torch.core.noise import GeneratorNoise
+from repro_torch.core import noise as _noise
 from repro_torch.core.synapses import SynapseState
 from repro_torch.core.traversal import FMMConfig
 
@@ -91,28 +108,50 @@ class KernelParams(NamedTuple):
 
 
 def activity_step(neurons: NeuronState, edges: SynapseState, sign, u: torch.Tensor,
-                  cfg: MSPConfig) -> NeuronState:
+                  cfg: MSPConfig, mask: Optional[torch.Tensor] = None) -> NeuronState:
     """Phases 1 and 2 over state of any leading shape (..., n): synaptic
     input over every edge table at once, then one `msp_update` launch over
-    all rows, then the growth curve.  u: the spike uniforms, (..., n)."""
+    all rows, then the growth curve.  u: the spike uniforms, (..., n).
+    mask: optional active-row mask broadcasting to (..., n); pad rows are
+    made inert (`msp.step_neurons`)."""
     with record_function("step.synaptic_input"):
         syn_in = synapses.synaptic_input(edges, neurons.spiked, sign)
     with record_function("step.neurons"):
         flat = NeuronState(*(t.reshape(-1) for t in neurons))
-        new = msp.step_neurons(flat, syn_in.reshape(-1), cfg, u=u.reshape(-1))
+        if mask is not None:
+            mask = mask.expand(neurons.x.shape).reshape(-1)
+        new = msp.step_neurons(flat, syn_in.reshape(-1), cfg, u=u.reshape(-1), mask=mask)
     return NeuronState(*(t.reshape(neurons.x.shape) for t in new))
 
 
-def step_records(neurons: NeuronState, edges: SynapseState) -> StepRecord:
+def step_records(neurons: NeuronState, edges: SynapseState, n_active=None) -> StepRecord:
     """The step's records over the last axis: order-fixed reductions
-    (synapses.det_sum) times the reciprocal of n, as the JAX engine
-    computes them."""
+    (synapses.det_sum) times the reciprocal of the row count, as the JAX
+    engine computes them.
+
+    n_active: None (every row counts), or the active row count of padded
+    state, an int or (K,) ints for a (K, n) batch.  Rows past it are masked
+    out of the sums (a deviation from the mean is not zero on a pad row),
+    and a halving tree over [active | zeros] adds what the tree over the
+    active rows adds, so the records are the isolated run's bit for bit."""
     with record_function("step.records"):
-        n = neurons.calcium.shape[-1]
-        inv = float(np.float32(1.0) / np.float32(n))
-        ca_mean = synapses.det_sum(neurons.calcium) * inv
-        dev = neurons.calcium - ca_mean.unsqueeze(-1)
-        var = synapses.det_sum(dev * dev) * inv
+        calcium = neurons.calcium
+        n = calcium.shape[-1]
+        guard = None
+        if n_active is None:
+            inv = float(np.float32(1.0) / np.float32(n))
+        else:
+            n_act = np.asarray(n_active, np.int64)
+            # An empty slot (0 rows) gets 1: its records are discarded.
+            inv = torch.as_tensor(np.float32(1.0) / np.maximum(n_act, 1).astype(np.float32),
+                                  device=calcium.device)
+            guard = (torch.arange(n, device=calcium.device)
+                     < torch.as_tensor(n_act, device=calcium.device).unsqueeze(-1))
+            calcium = torch.where(guard, calcium, 0.0)
+        ca_mean = synapses.det_sum(calcium) * inv
+        dev = calcium - ca_mean.unsqueeze(-1)
+        sq = dev * dev if guard is None else torch.where(guard, dev * dev, 0.0)
+        var = synapses.det_sum(sq) * inv
         # The root in float64, rounded to float32: the correctly rounded
         # float32 root on every device (torch's float32 sqrt on the CPU is
         # not correctly rounded; the card's is).
@@ -145,7 +184,10 @@ class EngineConfig:
     # Upward pass: "segsum" (every level summed over its Morton runs) or
     # "m2m" (the leaf level from the neurons, parents merged from children).
     pyramid: str = "segsum"
-    rng: str = "batched"                # batched (counter: ROADMAP Queue 1 item 10)
+    # Draw layout: "batched" (whole arrays from a generator) or "counter"
+    # (every value keyed by its logical index, `core.streams`; what padded
+    # subdomains need to draw what an isolated run draws).
+    rng: str = "batched"
 
     def __post_init__(self):
         if self.method not in ("fmm", "barnes_hut", "direct"):
@@ -155,10 +197,6 @@ class EngineConfig:
             raise ValueError(f"pyramid must be 'segsum' or 'm2m', got {self.pyramid!r}")
         if self.rng not in ("batched", "counter"):
             raise ValueError(f"rng must be 'batched' or 'counter', got {self.rng!r}")
-        if self.rng != "batched":
-            raise NotImplementedError(
-                "rng='counter' is not ported yet; it comes with the serving "
-                "slice (ROADMAP.md Queue 1 item 10)")
 
 
 class PlasticityEngine:
@@ -180,6 +218,8 @@ class PlasticityEngine:
             self.positions_np, engine_cfg.domain, engine_cfg.depth)
         self.tree = octree.to_device(self.structure, self.device)
         self.positions = torch.as_tensor(self.positions_np, device=self.device)
+        self.rows = torch.arange(self.n, dtype=torch.int64, device=self.device)
+        self._prefixes = {}
         self.edge_capacity = engine_cfg.edge_capacity_per_neuron * self.n
         # Signed population vector (+1 excitatory / -1 inhibitory); the first
         # floor(f*n) neurons (in input order) are inhibitory.
@@ -209,25 +249,48 @@ class PlasticityEngine:
             c2=np.float32(params.c2),
             guard_delta=guard if guard is not None else float(self.fmm_cfg.delta))
 
-    def _runtime_sign(self, params: Optional[KernelParams]) -> Optional[torch.Tensor]:
+    def _runtime_sign(self, params: Optional[KernelParams],
+                      n_active: Optional[int] = None) -> Optional[torch.Tensor]:
         """(n,) +1/-1 sign vector from the params' inhibitory fraction (None
-        = all excitatory): the first floor(float32(f) * float32(n)) neurons
-        are inhibitory."""
+        = all excitatory): the first floor(float32(f) * float32(count))
+        neurons are inhibitory, count = n, or n_active in a padded state (the
+        reference's traced count; pad rows get +1)."""
         if params is None:
-            return self.sign
-        n_inh = np.floor(np.float32(params.inhibitory_fraction) * np.float32(self.n))
+            if n_active is None or self.sign is None:
+                return self.sign
+            frac = self.engine_cfg.inhibitory_fraction
+        else:
+            frac = params.inhibitory_fraction
+        count = self.n if n_active is None else n_active
+        n_inh = np.floor(np.float32(frac) * np.float32(count))
         if n_inh <= 0:
             return None
         idx = np.arange(self.n, dtype=np.float32)
         return torch.as_tensor(np.where(idx < n_inh, -1.0, 1.0).astype(np.float32),
                                device=self.device)
 
+    def prefix_engine(self, m: int) -> "PlasticityEngine":
+        """The engine of the first m positions at this engine's octree depth
+        (cached per m): the isolated engine of an m-neuron session in a
+        padded state of this engine."""
+        if m == self.n:
+            return self
+        if m not in self._prefixes:
+            cfg = dataclasses.replace(self.engine_cfg, depth=self.structure.depth)
+            self._prefixes[m] = PlasticityEngine(self.positions_np[:m], self.msp_cfg,
+                                                 self.fmm_cfg, cfg, self.device)
+        return self._prefixes[m]
+
     # -- phase 3: connectivity update --------------------------------------
     def connectivity_update(self, state: SimState, noise, step: int,
-                            params: Optional[KernelParams] = None) -> SimState:
+                            params: Optional[KernelParams] = None,
+                            n_active: Optional[int] = None) -> SimState:
         """The update with the draws of `step` (the step counter before the
         activity step that triggered it).  Returns new tensors: nothing of
-        `state` is written."""
+        `state` is written.  n_active: the active row count of a padded
+        state; the update then runs on the active prefix (module docs)."""
+        if n_active is not None and n_active < self.n:
+            return self._update_prefix(state, noise, step, params, int(n_active))
         n = self.n
         neurons = state.neurons
         with record_function("update.delete_excess"):
@@ -246,10 +309,20 @@ class PlasticityEngine:
             req_cnt = torch.where(partner >= 0, req_cnt, 0)
             accepted = synapses.resolve_conflicts(partner, req_cnt,
                                                   den_vac.to(torch.int32),
-                                                  noise.conflict_bits(step, n))
+                                                  noise.conflict_bits(step, self.rows))
             edges, dropped = synapses.insert(edges, partner, accepted,
                                              self.engine_cfg.max_requests_per_neuron)
         return state._replace(edges=edges, dropped=state.dropped + dropped)
+
+    def _update_prefix(self, state: SimState, noise, step: int,
+                       params: Optional[KernelParams], m: int) -> SimState:
+        eng = self.prefix_engine(m)
+        cap = eng.edge_capacity
+        sub = state._replace(neurons=NeuronState(*(t[:m] for t in state.neurons)),
+                             edges=SynapseState(*(t[:cap] for t in state.edges)))
+        new = eng.connectivity_update(sub, noise, step, params)
+        edges = SynapseState(*(torch.cat([a, b[cap:]]) for a, b in zip(new.edges, state.edges)))
+        return state._replace(edges=edges, dropped=new.dropped)
 
     def _find_partners(self, ax_vac, den_vac, cfg: FMMConfig, noise,
                        step: int) -> torch.Tensor:
@@ -274,23 +347,29 @@ class PlasticityEngine:
 
     # -- one simulation step -------------------------------------------------
     def step(self, state: SimState, noise, params: Optional[KernelParams] = None,
-             do_update: Optional[bool] = None) -> Tuple[SimState, StepRecord]:
+             do_update: Optional[bool] = None,
+             n_active: Optional[int] = None) -> Tuple[SimState, StepRecord]:
         """One activity step (+ the periodic connectivity update).
 
         do_update: overrides the step-counter schedule (None = update when
-        the advanced counter is a multiple of `update_interval`)."""
-        return self._step(state, noise, params, self._runtime_sign(params), do_update)
+        the advanced counter is a multiple of `update_interval`).
+        n_active: only the first n_active rows are live (padded subdomains,
+        module docs); for the isolated run's draws the noise must be a
+        counter one (`EngineConfig(rng="counter")`)."""
+        return self._step(state, noise, params, self._runtime_sign(params, n_active),
+                          do_update, n_active)
 
-    def _step(self, state: SimState, noise, params, sign, do_update=None):
+    def _step(self, state: SimState, noise, params, sign, do_update=None, n_active=None):
         s = state.step
+        mask = None if n_active is None else self.rows < n_active
         neurons = activity_step(state.neurons, state.edges, sign,
-                                noise.spike_uniform(s, self.n), self.msp_cfg)
+                                noise.spike_uniform(s, self.rows), self.msp_cfg, mask)
         state = state._replace(neurons=neurons, step=s + 1)
         if do_update is None:
             do_update = state.step % self.msp_cfg.update_interval == 0
         if do_update:
-            state = self.connectivity_update(state, noise, s, params)
-        return state, step_records(neurons, state.edges)
+            state = self.connectivity_update(state, noise, s, params, n_active)
+        return state, step_records(neurons, state.edges, n_active)
 
     # -- whole simulation -----------------------------------------------------
     def simulate(self, state: SimState, num_steps: int, seed: int = 0,
@@ -300,25 +379,23 @@ class PlasticityEngine:
         and the final probe state as a third element when `probes` (a
         `core.probes.ProbeSet`) ride along.
 
-        noise: the draw source (default: `GeneratorNoise(seed)` on the
-        engine's device).  params: per-run `KernelParams` (None = the static
-        configs).  probe_state: the probes' carry (None = a fresh one started
-        at the state's step).  Probes are pure observers: the state and
-        records are bit for bit those of a run without them.  n_active
-        belongs to the serving slice and is not ported yet."""
-        if n_active is not None:
-            raise NotImplementedError(
-                "n_active (padded subdomains) is not ported yet "
-                "(ROADMAP.md Queue 1 item 10)")
+        noise: the draw source (default: `noise.for_config(rng, seed)` on
+        the engine's device).  params: per-run `KernelParams` (None = the
+        static configs).  probe_state: the probes' carry (None = a fresh one
+        started at the state's step).  Probes are pure observers: the state
+        and records are bit for bit those of a run without them.
+        n_active: the active row count of a padded state (see `step`)."""
+        if n_active is not None and not 0 <= n_active <= self.n:
+            raise ValueError(f"n_active={n_active} outside [0, {self.n}]")
         if noise is None:
-            noise = GeneratorNoise(seed, self.device)
+            noise = _noise.for_config(self.engine_cfg.rng, seed, self.device)
         if probes is not None and probe_state is None:
             probe_state = probes.init(self.n, start_step=state.step, device=self.device)
-        sign = self._runtime_sign(params)
+        sign = self._runtime_sign(params, n_active)
         recs = []
         for _ in range(num_steps):
             prev = state
-            state, rec = self._step(state, noise, params, sign)
+            state, rec = self._step(state, noise, params, sign, n_active=n_active)
             if probes is not None:
                 probe_state = probes.record(probe_state, prev, state, rec)
             recs.append(rec)

@@ -74,15 +74,25 @@ def growth_curve(calcium: torch.Tensor, eta: float, cfg: MSPConfig) -> torch.Ten
     xi = (eta + eps)/2, zeta = (eps - eta)/(2 sqrt(ln 2))."""
     xi = (eta + cfg.eps) / 2.0
     zeta = (cfg.eps - eta) / (2.0 * math.sqrt(math.log(2.0)))
-    return cfg.mu * (2.0 * torch.exp(-((calcium - xi) / zeta) ** 2) - 1.0)
+    # Written to round alike on the CPU and the card: a multiplication by
+    # 1/zeta (torch divides by a scalar on the card as a multiplication by
+    # its reciprocal, on the CPU truly), and the exp in float64 rounded to
+    # float32 (torch's float32 exp differs by an ulp between the two).
+    d = (calcium - xi) * (1.0 / zeta)
+    g = torch.exp((-(d * d)).double()).float()
+    return cfg.mu * (2.0 * g - 1.0)
 
 
 def step_neurons(state: NeuronState, syn_input: torch.Tensor, cfg: MSPConfig,
-                 u: torch.Tensor) -> NeuronState:
+                 u: torch.Tensor, mask: torch.Tensor | None = None) -> NeuronState:
     """Phases 1 + 2 for one simulation step.
 
     syn_input: (n,) signed count of presynaptic partners that spiked last
     step.  u: the (n,) spike uniforms (`noise.spike_uniform`).
+    mask: optional (n,) bool active-row mask (padded subdomains).  Pad rows
+    are made inert after the update, outside the kernel: zeros in x,
+    refrac, calcium and the elements, spiked False, so they add exact zeros
+    to every later reduction; active rows are untouched.
     """
     x, refrac, spiked, calcium = ops.msp_update(
         state.x, state.refrac, state.calcium, syn_input, u, cfg)
@@ -90,5 +100,9 @@ def step_neurons(state: NeuronState, syn_input: torch.Tensor, cfg: MSPConfig,
                      min=0.0)
     den = torch.clamp(state.den_elems
                       + growth_curve(calcium, cfg.eta_dendrite, cfg), min=0.0)
+    if mask is not None:
+        x, calcium, ax, den = (torch.where(mask, t, 0.0) for t in (x, calcium, ax, den))
+        refrac = torch.where(mask, refrac, 0)
+        spiked = spiked & mask
     return NeuronState(x=x, refrac=refrac, spiked=spiked, calcium=calcium,
                        ax_elems=ax, den_elems=den)

@@ -171,23 +171,31 @@ class ProbeSet:
                           buffers=buffers)
 
     def record(self, ps: ProbeState, prev: SimState, new: SimState,
-               rec: StepRecord) -> ProbeState:
+               rec: StepRecord, keep: Optional[np.ndarray] = None) -> ProbeState:
         """Write one row per probe at the cursor (in place; see the module
         docstring) and return the state with the cursor advanced.  Past the
         chunk's end the last row is overwritten, as the reference's clamped
-        write does: flush and `advance` before the cursor reaches it."""
+        write does: flush and `advance` before the cursor reaches it.
+
+        keep: optional (K,) bool of a batched state: only those replicas
+        record and advance their cursors; the others are frozen (served
+        slots that are empty, finished mid-round, or not recording)."""
         rows = np.minimum(ps.cursor, self.chunk_size - 1)
+        if keep is not None and keep.all():
+            keep = None
         for p in self.probes:
             row = p.observe(prev, new, rec)
             buf = ps.buffers[p.name]
             if rows.ndim == 0:
                 buf[int(rows)] = row
-            elif (rows == rows.flat[0]).all():
+            elif keep is None and (rows == rows.flat[0]).all():
                 buf[:, int(rows.flat[0])] = row
             else:
                 for k, c in enumerate(rows):
-                    buf[k, int(c)] = row[k]
-        return ProbeState(cursor=ps.cursor + 1, step0=ps.step0, buffers=ps.buffers)
+                    if keep is None or keep[k]:
+                        buf[k, int(c)] = row[k]
+        step = 1 if keep is None else keep.astype(ps.cursor.dtype)
+        return ProbeState(cursor=ps.cursor + step, step0=ps.step0, buffers=ps.buffers)
 
     def advance(self, ps: ProbeState) -> ProbeState:
         """Start the next chunk: cursor to 0, step0 past the recorded rows.

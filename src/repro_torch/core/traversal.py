@@ -108,7 +108,7 @@ def descend(tree: OctreeTensors, levels: List[LevelData], cfg: FMMConfig,
             nxt.ax_w[occ], nxt.ax_c[occ], nxt.gc[occ], nxt.moms[occ],
             tgt_den_w, nxt.den_c[tc], nxt.gc[tc], nxt.herm[tc], cfg, valid)
         log_mass = torch.where(tgt_den_w > 0, log_mass, NEG_INF)
-        gumbel = noise.descent_gumbel(step, l + 1, occ.shape[0])
+        gumbel = noise.descent_gumbel(step, l + 1, occ)        # keyed by box id
         choice = torch.argmax(log_mass + gumbel, dim=-1)          # first max
         alive = (parent_tgt >= 0) & (nxt.ax_w[occ] > 0) \
             & (tgt_den_w > 0).any(dim=-1)
@@ -144,7 +144,7 @@ def resolve_leaf_partners(tree: OctreeTensors, positions: torch.Tensor,
     logw = torch.log(torch.clamp(den_c, min=ex.LOG_EPS)) - d2 / cfg.delta
     mask = valid & (den_c > 0) & (cand != rows[:, None])          # no autapses
     logw = torch.where(mask, logw, NEG_INF)
-    pick = torch.argmax(logw + noise.leaf_gumbel(step, n, max_leaf), dim=-1)
+    pick = torch.argmax(logw + noise.leaf_gumbel(step, rows, max_leaf), dim=-1)
     partner = torch.gather(cand, 1, pick[:, None])[:, 0]
     wants = (ax_vac >= 1.0) & (my_tgt >= 0) & mask.any(dim=-1)
     return torch.where(wants, partner, -1).to(torch.int32)

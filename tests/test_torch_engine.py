@@ -23,6 +23,7 @@ from repro.core import synapses as jsyn
 from repro.core import traversal as jtrav
 from repro_torch import convert
 from repro_torch.core import engine, msp, traversal
+from repro_torch.core.noise import GeneratorNoise
 
 N = 256
 STEPS = 300
@@ -38,7 +39,8 @@ class JaxReplayNoise:
     (kconn split in 3), `delete_excess`, `descend` (and the Barnes-Hut
     descent, which draws from the same keys with one row per neuron),
     `resolve_leaf_partners`, `find_partners_direct` and `resolve_conflicts`
-    derive them."""
+    derive them.  The batched draws read only the number of logical indices
+    each call names (`repro_torch/core/noise.py`)."""
 
     def __init__(self, key):
         self.key = key
@@ -52,28 +54,30 @@ class JaxReplayNoise:
     def _t(a):
         return torch.from_numpy(np.array(a))
 
-    def spike_uniform(self, step, n):
-        return self._t(jax.random.uniform(self._keys(step)[0], (n,), jnp.float32))
+    def spike_uniform(self, step, rows):
+        return self._t(jax.random.uniform(self._keys(step)[0], (rows.shape[0],),
+                                          jnp.float32))
 
-    def delete_bits(self, step, side, e):
+    def delete_bits(self, step, side, slots):
         k = jax.random.split(self._keys(step)[1])[side]
-        return self._t(jax.random.bits(k, (e,), jnp.uint32)).to(torch.int64)
+        return self._t(jax.random.bits(k, (slots.shape[0],), jnp.uint32)).to(torch.int64)
 
-    def descent_gumbel(self, step, level, o):
+    def descent_gumbel(self, step, level, ids):
         k1 = jax.random.split(self._keys(step)[2])[0]
-        return self._t(jax.random.gumbel(jax.random.fold_in(k1, level), (o, 8),
+        return self._t(jax.random.gumbel(jax.random.fold_in(k1, level), (ids.shape[0], 8),
                                          jnp.float32))
 
-    def leaf_gumbel(self, step, n, max_leaf):
+    def leaf_gumbel(self, step, rows, max_leaf):
         k2 = jax.random.split(self._keys(step)[2])[1]
         return self._t(jax.random.gumbel(jax.random.fold_in(k2, 10_000),
-                                         (n, max_leaf), jnp.float32))
+                                         (rows.shape[0], max_leaf), jnp.float32))
 
-    def direct_gumbel(self, step, n):
-        return self._t(jax.random.gumbel(self._keys(step)[2], (n, n), jnp.float32))
+    def direct_gumbel(self, step, rows, n):
+        return self._t(jax.random.gumbel(self._keys(step)[2], (rows.shape[0], n),
+                                         jnp.float32))
 
-    def conflict_bits(self, step, n):
-        return self._t(jax.random.bits(self._keys(step)[3], (n,), jnp.uint32)
+    def conflict_bits(self, step, rows):
+        return self._t(jax.random.bits(self._keys(step)[3], (rows.shape[0],), jnp.uint32)
                        ).to(torch.int64)
 
 
@@ -214,11 +218,16 @@ def test_convert_round_trip_and_configs():
 
 
 def test_simulate_rejects_unported_arguments():
+    """n_active is ported (tests/test_torch_padded.py holds it to the
+    isolated run); an active count outside [0, n] is rejected."""
     pos, arrays = _mid_growth(16, 0)
     eng = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, ENGINE_CFG, device="cpu")
     st = convert.from_jax_state(arrays, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.simulate(st, 1, n_active=8)
+    for bad in (17, -1):
+        with pytest.raises(ValueError, match="n_active"):
+            eng.simulate(st, 1, n_active=bad)
+    st1, recs = eng.simulate(st, 1, n_active=8)
+    assert st1.step == 1 and not bool(st1.neurons.calcium[8:].any())
 
 
 def test_simulate_runs_with_params():
@@ -244,7 +253,7 @@ def test_step_do_update_overrides_the_schedule():
     True runs one at a step the schedule skips."""
     pos, arrays = _mid_growth(64, 2)
     eng = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, ENGINE_CFG, device="cpu")
-    noise = engine.GeneratorNoise(1, torch.device("cpu"))
+    noise = GeneratorNoise(1, torch.device("cpu"))
     st = convert.from_jax_state(arrays, "cpu")._replace(step=99)
     skipped, rec = eng.step(st, noise, do_update=False)
     assert skipped.step == 100 and skipped.edges.valid is st.edges.valid

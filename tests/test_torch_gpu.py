@@ -246,3 +246,45 @@ def test_m2m_pyramid_on_card_equals_cpu(cuda_device):
             a, b = getattr(lg, f).cpu(), getattr(lc, f)
             assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * b.abs().max()).all()), f
         assert torch.equal(lb.den_w, lg.den_w) and torch.equal(lb.den_c, lg.den_c)
+
+
+def _serve(device, pool=64):
+    """Pinned traffic (the CPU tests' scenario) through the service on
+    `device`: the event log and every session's result."""
+    import tempfile
+
+    from repro_torch.core.probes import CalciumProbe, ProbeSet, SpikeRasterProbe
+    from repro_torch.launch.serve import build_service, default_traffic, replay_traffic
+    traffic = default_traffic(seed=6, num_sessions=8, pool_size=pool, round_steps=100,
+                              max_rounds_of_work=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        pset = ProbeSet([SpikeRasterProbe(), CalciumProbe()], chunk_size=300)
+        svc = build_service(pool, num_slots=4, round_steps=100, speedup=400.0, seed=42,
+                            checkpoint_dir=tmp, probes=pset, device=device)
+        events = replay_traffic(svc, traffic)
+        results = {req.session_id: svc.result(req.session_id) for _, req in traffic}
+        svc.close()
+    return events, results
+
+
+@pytest.mark.gpu
+def test_served_traffic_on_card_equals_cpu(cuda_device):
+    """Every session of the served traffic: the card (kernels) and the CPU
+    (plain versions) give the same records, final state and probe rows, bit
+    for bit; the card's run went through msp_update."""
+    ops.reset_launches()
+    card_events, card = _serve(cuda_device)
+    assert ops.launches["msp_update"] > 0
+    cpu_events, cpu = _serve("cpu")
+    assert card_events == cpu_events and any(e.startswith("restored") for e in cpu_events)
+    for sid, want in cpu.items():
+        got = card[sid]
+        for f, a, b in zip(want.records._fields, got.records, want.records):
+            assert torch.equal(a, b), f"{sid}: records.{f}"
+        for part in ("neurons", "edges"):
+            for f, a, b in zip(getattr(want.final_state, part)._fields,
+                               getattr(got.final_state, part), getattr(want.final_state, part)):
+                assert torch.equal(a, b), f"{sid}: {part}.{f}"
+        assert (got.probe_rows is None) == (want.probe_rows is None)
+        for name, rows in (want.probe_rows or {}).items():
+            assert torch.equal(got.probe_rows[name], rows), f"{sid}: probe {name}"

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch import convert, device
-from repro_torch.core import engine, noise
+from repro_torch.core import engine, ensemble, noise, streams
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -35,7 +35,8 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "msp_update.py", "m2l_pair.py", "gaussian_nbody.py",
             "barnes_hut.py", "direct.py", "analysis.py", "ensemble.py", "probes.py",
-            "manager.py", "sweep.py", "chip_smoke.py"} <= names
+            "manager.py", "sweep.py", "chip_smoke.py", "streams.py", "session.py",
+            "batcher.py", "service.py", "serve.py"} <= names
 
 
 @pytest.fixture
@@ -54,13 +55,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         convert.from_jax_state({})
     with pytest.raises(RuntimeError):
         noise.GeneratorNoise(0, device.resolve("cuda"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        streams.CounterNoise(0)
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.build_service(16, num_slots=1, round_steps=100, checkpoint_dir="unused")
     assert device.resolve("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("field,value", [("rng", "counter")])
-def test_unported_options_raise_not_implemented(field, value):
+def _unported(option):
+    """Build the entry point with an option that belongs to a later item."""
+    pos = np.random.default_rng(0).uniform(0, 1000.0, (16, 3)).astype(np.float32)
+    eng = engine.PlasticityEngine(pos, device="cpu")
+    if option == "ensemble-mesh":
+        ensemble.EnsembleEngine(eng, mesh=object())
+    elif option == "service-mesh":
+        from repro_torch.serve import SimulationService
+        SimulationService(pos, eng.msp_cfg, eng.fmm_cfg, num_slots=1, round_steps=100,
+                          checkpoint_dir="unused", mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["ensemble-mesh", "service-mesh"])
+def test_unported_options_raise_not_implemented(option):
+    """A replica mesh (ROADMAP Queue 1 item 11) raises; rng="counter" and
+    n_active are ported and construct."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.EngineConfig(**{field: value})
+        _unported(option)
+    assert engine.EngineConfig(rng="counter").rng == "counter"
 
 
 @pytest.mark.parametrize("method", ["fmm", "barnes_hut"])

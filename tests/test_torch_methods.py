@@ -23,6 +23,7 @@ from repro.core import traversal as jtrav
 from repro_torch import convert
 from repro_torch.core import barnes_hut, engine, octree, traversal
 from repro_torch.core.noise import GeneratorNoise
+from repro_torch.core.streams import CounterNoise
 
 from test_torch_engine import (JaxReplayNoise, MSP_CFG, FMM_CFG, _jax_configs,
                                _jax_state, _mid_growth)
@@ -132,16 +133,16 @@ class KeyNoise:
         self.k1, self.k2 = jax.random.split(key)
         self.key = key
 
-    def descent_gumbel(self, step, level, o):
-        return _t(jax.random.gumbel(jax.random.fold_in(self.k1, level), (o, 8),
+    def descent_gumbel(self, step, level, ids):
+        return _t(jax.random.gumbel(jax.random.fold_in(self.k1, level), (ids.shape[0], 8),
                                     jnp.float32))
 
-    def leaf_gumbel(self, step, n, max_leaf):
-        return _t(jax.random.gumbel(jax.random.fold_in(self.k2, 10_000), (n, max_leaf),
-                                    jnp.float32))
+    def leaf_gumbel(self, step, rows, max_leaf):
+        return _t(jax.random.gumbel(jax.random.fold_in(self.k2, 10_000),
+                                    (rows.shape[0], max_leaf), jnp.float32))
 
-    def direct_gumbel(self, step, n):
-        return _t(jax.random.gumbel(self.key, (n, n), jnp.float32))
+    def direct_gumbel(self, step, rows, n):
+        return _t(jax.random.gumbel(self.key, (rows.shape[0], n), jnp.float32))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -195,16 +196,20 @@ def test_direct_with_no_vacant_dendrite_requests_nothing():
 
 
 def test_unported_search_options_raise():
+    """The sharded find phase (`row_start`, ROADMAP Queue 1 item 11) raises
+    on both Barnes-Hut entry points; counter draws are ported and run."""
     pos, ax, den, _, _, tree, levels = _problem(0, n=64, depth=2)
     cfg, noise = traversal.FMMConfig(), GeneratorNoise(0, CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         barnes_hut.descend_barnes_hut(tree, levels, _t(pos), cfg, noise, 0, row_start=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         barnes_hut.find_partners_bh(tree, levels, _t(pos), _t(ax), _t(den), cfg, noise,
-                                    0, rng="counter")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        barnes_hut.find_partners_direct(_t(pos), _t(ax), _t(den), cfg, noise, 0,
-                                        rng="counter")
+                                    0, row_start=0)
+    counter = CounterNoise(0, CPU)
+    for got in (barnes_hut.find_partners_bh(tree, levels, _t(pos), _t(ax), _t(den), cfg,
+                                            counter, 0),
+                barnes_hut.find_partners_direct(_t(pos), _t(ax), _t(den), cfg, counter, 0)):
+        assert got.shape == (64,) and bool((got >= -1).all()) and bool((got >= 0).any())
 
 
 # -- the engine around them ---------------------------------------------------

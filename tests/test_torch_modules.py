@@ -39,13 +39,13 @@ class SlabNoise:
     def __init__(self, **slabs):
         self.slabs = slabs
 
-    def descent_gumbel(self, step, level, o):
+    def descent_gumbel(self, step, level, ids):
         return self.slabs["descent"][level]
 
-    def leaf_gumbel(self, step, n, max_leaf):
+    def leaf_gumbel(self, step, rows, max_leaf):
         return self.slabs["leaf"]
 
-    def delete_bits(self, step, side, e):
+    def delete_bits(self, step, side, slots):
         return self.slabs["delete"][side]
 
 
