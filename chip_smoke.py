@@ -61,12 +61,30 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              evicted and restored, equal their isolated runs on the card bit
              for bit.  Session-steps per second, round time and its split,
              eviction and restore costs and bytes, occupancy, peak memory
-             and the padding tax.
+             and the padding tax;
+14. dist   — `DistributedPlasticityEngine` over NCCL at world size 1 in the
+             main configuration (default switches, pyramid_exchange="routed",
+             find_phase="replicated", and method="barnes_hut"): records,
+             spikes and edge tables bit for bit against the single-device
+             run on the same Morton-sorted positions, each run's own
+             launches (msp_update once a step, m2l_separable as in phase 4),
+             step and update times, collective bytes per step and per update
+             beside the modelled counters; the helpers of p in {2, 4, 8}
+             ranks emulated on the card at 2^20 (merged pyramid partials,
+             merged descent maps with the per-rank descents' m2l_separable
+             launches counted, leaf rows, splitter-merged conflicts,
+             slot-range insert) bit for bit against the single-device
+             functions; gloo ranks p in {2, 4}
+             in spawned CPU processes at N = 256 against the card's
+             single-device run; the counters of the 2^20 structure at p in
+             {1, 4, 64, 256, 512}.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
 m2m, probes, serve) zeroes the launch counts just before it and reads them
-just after.  The script prints the card's
+just after; dist does so around each distributed engine run and each
+emulated per-rank descent, so the single-device runs it compares with are
+not counted.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -1265,7 +1283,9 @@ def phase_serve(seed: int, sweep: dict) -> dict:
         rounds = len(svc.occupancy_log)
         engine_cfg = svc.engine_cfg
         profile = svc.profile
+        prefixes_end = len(svc.engine._prefixes)
         svc.close()
+        prefixes_closed = len(svc.engine._prefixes)
         del svc
     torch.cuda.empty_cache()
     for e in events:
@@ -1356,11 +1376,307 @@ def phase_serve(seed: int, sweep: dict) -> dict:
     log(f"[serve] evictions (session, s, bytes on disk): {evicts}; restores (session, s, "
         f"bytes read): {restores}; finishes (session, s to harvest): "
         f"{[(sid, round(t, 3)) for sid, t in finishes]}")
-    log(f"[serve] peak memory {out['peak_gib']:.2f} GiB; padding tax {out['padding_tax']:.4f} "
+    log(f"[serve] peak memory {out['peak_gib']:.2f} GiB (41.74 GiB before the prefix cache "
+        f"was bounded); cached prefix engines at the end {prefixes_end}, after close "
+        f"{prefixes_closed}; padding tax {out['padding_tax']:.4f} "
         f"(row-steps computed / requested; {out['occupied_tax']:.4f} over occupied slots)")
+    if prefixes_end or prefixes_closed:
+        raise AssertionError("serve: prefix engines left cached after the last session")
     log(f"[serve] bit for bit equal to their isolated card runs (records, neuron rows, edge "
         f"prefix, probe rows; pad rows inert): {compared}")
     log("[profile] serve full round: " + json.dumps(profile))
+    return out
+
+
+def torch_sum_partials_differ(eng, ax_vac, den_vac, p: int) -> list:
+    """Where p ranks' owner-span partials summed by `torch.sum`
+    (`_run_sums(ordered=False)`), merged, differ from `torch.sum`'s whole
+    build ("level.field:elements"): why the pyramid adds its runs in a
+    fixed order."""
+    from repro_torch.core import octree
+    tree, cfg = eng.tree, eng.fmm_cfg
+    pad = lambda v: torch.cat([v, v.new_zeros((1,) + v.shape[1:])])
+    spans = octree.owner_spans(eng.structure, p)
+    layouts = [octree.span_layouts(tree, spans, r) for r in range(p)]
+    fields = ("den_w", "ax_w", "den_pos", "ax_pos", "herm_raw", "moms")
+    bad = []
+    for l, full in enumerate(tree.levels):
+        want = octree.build_level_raw(full, *(octree._sorted_padded(tree, v) for v in (
+            eng.positions, ax_vac, den_vac)), cfg.delta, cfg.p, ordered=False)
+        got = [torch.zeros_like(w) for w in want]
+        for r in range(p):
+            sp = layouts[r][l]
+            cut = lambda v: pad(v[sp.start:sp.stop])
+            raw = octree.build_level_raw(sp.layout, cut(eng.positions), cut(ax_vac),
+                                         cut(den_vac), cfg.delta, cfg.p, ordered=False)
+            for g, x in zip(got, raw):
+                g[sp.layout.occupied] += x
+        bad += [f"{l}.{f}:{int((a != b).sum())}" for f, a, b in zip(fields, got, want)
+                if not torch.equal(a, b)]
+    return bad
+
+
+def emulated_helpers(eng, st, p: int, seed: int) -> dict:
+    """The distributed helpers of p ranks run one after another on the card,
+    on the vacancies of `st` (eng: the single-device engine of the sorted
+    positions), each merged as the ranks would merge it and held to the
+    single-device function bit for bit: the pyramid (summed owner-span
+    partials), the descent (per-level merged partial maps), the leaf rows
+    and the conflict resolution (concatenated), the insert (slot ranges
+    concatenated).  Returns the emulation's time in seconds, the
+    m2l_separable launches of the per-rank descents alone, and where
+    `torch.sum` partials would have differed (`torch_sum_partials_differ`,
+    not timed)."""
+    from repro_torch.core import octree, synapses, traversal
+    from repro_torch.core.noise import GeneratorNoise
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    n, cfg = eng.n, eng.fmm_cfg
+    vac = lambda elems, degree: torch.clamp(
+        torch.floor(elems).to(torch.int32) - degree(st.edges, n), min=0).to(torch.float32)
+    ax_vac = vac(st.neurons.ax_elems, synapses.out_degree)
+    den_vac = vac(st.neurons.den_elems, synapses.in_degree)
+    tree, spans = eng.tree, octree.owner_spans(eng.structure, p)
+    want = octree.build_pyramid(tree, eng.positions, ax_vac, den_vac, cfg.delta, cfg.p)
+    raws = None
+    for r in range(p):
+        part = octree.build_pyramid_spans(tree, octree.span_layouts(tree, spans, r),
+                                          eng.positions, ax_vac, den_vac, cfg.delta, cfg.p)
+        raws = part if raws is None else [tuple(a + b for a, b in zip(x, y))
+                                          for x, y in zip(raws, part)]
+        del part
+    for l, (raw, w) in enumerate(zip(raws, want)):
+        got = octree.finalize_level(tree.levels[l].centers, raw, cfg.p)
+        for f, a, b in zip(got._fields, got, w):
+            if not torch.equal(a, b):
+                raise AssertionError(f"dist p={p}: merged pyramid level {l} {f} differs")
+    del raws
+    noise = GeneratorNoise(seed, eng.device)
+    tgt = traversal._root(want)
+    ops.reset_launches()
+    for level in range(1, eng.structure.depth + 1):
+        parts = [traversal.descend_level_partial(tree, spans, r, level, want[level], tgt, cfg,
+                                                 noise, 7) for r in range(p)]
+        tgt = sum(parts[1:], start=parts[0]) - 1
+    partial_m2l = ops.launches["m2l_separable"]
+    full_tgt = traversal.descend(tree, want, cfg, noise, 7)
+    if not torch.equal(tgt, full_tgt):
+        raise AssertionError(f"dist p={p}: merged descent differs")
+    m = n // p
+    my_tgt = full_tgt[tree.leaf_of]
+    partner = traversal.resolve_leaf_partners(tree, eng.positions, ax_vac, den_vac, my_tgt,
+                                              cfg, noise, 7)
+    rows = torch.cat([traversal.resolve_leaf_partners(
+        tree, eng.positions, ax_vac, den_vac, my_tgt[r * m:(r + 1) * m], cfg, noise, 7, r * m)
+        for r in range(p)])
+    if not torch.equal(rows, partner):
+        raise AssertionError(f"dist p={p}: leaf rows differ")
+    req = torch.where(partner >= 0, torch.clamp(ax_vac.to(torch.int32), max=4), 0)
+    cap, prio = den_vac.to(torch.int32), noise.conflict_bits(7, eng.rows)
+    accepted = synapses.resolve_conflicts(partner, req, cap, prio)
+    runs = []           # the ranks' gathered runs, then each rank's accepted rows
+    for r in range(p):
+        calls = []
+        runs.append(calls)
+        synapses.resolve_conflicts_span(partner[r * m:(r + 1) * m], req[r * m:(r + 1) * m], cap,
+                                        prio[r * m:(r + 1) * m], rank=r,
+                                        gather=lambda x, c=calls: c.append(x) or x.repeat(p))
+    got = []
+    for r in range(p):
+        k = iter(range(3))
+        got.append(synapses.resolve_conflicts_span(
+            partner[r * m:(r + 1) * m], req[r * m:(r + 1) * m], cap, prio[r * m:(r + 1) * m],
+            rank=r, gather=lambda x: (torch.cat([c[i] for c in runs]) if (i := next(k)) < 2
+                                      else x)))
+    if not torch.equal(torch.cat(got), accepted):
+        raise AssertionError(f"dist p={p}: splitter-merged conflict resolution differs")
+    want_e, dropped = synapses.insert(st.edges, partner, accepted, 4)
+    e = st.edges.src.shape[0] // p
+    free = (~st.edges.valid).long()
+    parts, placed = [], 0
+    for r in range(p):
+        local = synapses.SynapseState(*(t[r * e:(r + 1) * e] for t in st.edges))
+        new, pl, total = synapses.insert_span(local, partner, accepted, 4,
+                                              free_offset=free[:r * e].sum())
+        parts.append(new)
+        placed += int(pl)
+    for f, w in zip(want_e._fields, want_e):
+        if not torch.equal(torch.cat([getattr(x, f) for x in parts]), w):
+            raise AssertionError(f"dist p={p}: slot-range insert differs ({f})")
+    if total - placed != int(dropped):
+        raise AssertionError(f"dist p={p}: dropped count differs")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return secs, partial_m2l, torch_sum_partials_differ(eng, ax_vac, den_vac, p)
+
+
+def phase_dist(seed: int, main: dict) -> dict:
+    """14. dist: `DistributedPlasticityEngine` (a) over NCCL at world size 1
+    in the main configuration, four ways, each bit for bit against the
+    single-device run on the same Morton-sorted positions; (b) the helpers
+    of p in {2, 4, 8} ranks emulated on the card at 2^20; (c) gloo ranks in
+    spawned CPU processes at N = 256 against the card's single-device run;
+    (d) the census of the 2^20 structure up to 512 ranks."""
+    import concurrent.futures
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import convert, device as rdevice
+    from repro_torch.core.distributed import DistributedPlasticityEngine, sorted_positions
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import brain_dryrun, mesh
+    from repro_torch.launch.distributed import Job, run_ranks, same_run
+    steps = 300
+    msp_cfg = MSPConfig.calibrated(speedup=100.0)
+    interval = msp_cfg.update_interval
+    pos = main_positions(seed)
+    # m2l_separable launches once a connectivity update and valid level.
+    m2l_per_update = main["launches"]["m2l_separable"] // (steps // interval)
+    out = {"runs": {}}
+    launches = {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        group = mesh.CountingGroup(mesh.make_data_group(f"file://{tmp}/rendezvous", 0, 1,
+                                                        "cuda"))
+        try:
+            group.merge(torch.zeros(1, device=rdevice.resolve()))   # NCCL sets up on first use
+            torch.cuda.synchronize()
+            # (a) NCCL, world size 1.
+            refs = {}
+            for method in ("fmm", "barnes_hut"):
+                ecfg = EngineConfig(domain=MAIN_DOMAIN, method=method)
+                eng = PlasticityEngine(sorted_positions(pos, ecfg), msp_cfg, FMMConfig(), ecfg)
+                st, syn, step_s, update_s = timed_run(eng, seed, steps)
+                refs[method] = (eng, st, syn, step_s, update_s)
+            tag_opts = (("default", "fmm", {}),
+                        ("routed", "fmm", dict(pyramid_exchange="routed")),
+                        ("replicated", "fmm", dict(find_phase="replicated")),
+                        ("barnes_hut", "barnes_hut", {}))
+            for tag, method, opts in tag_opts:
+                ecfg = EngineConfig(domain=MAIN_DOMAIN, method=method)
+                deng = DistributedPlasticityEngine(pos, group, msp_cfg, FMMConfig(), ecfg, **opts)
+                eng, st, syn, step_s, update_s = refs[method]
+                if not np.array_equal(deng.positions_np, eng.positions_np):
+                    raise AssertionError(f"dist {tag}: sorted positions differ")
+                ops.reset_launches()
+                dst, dsyn, dstep_s, dupdate_s = timed_run(
+                    deng, seed, steps, simulate=lambda s, k: deng.simulate(s, k, seed=seed))
+                run_launches = dict(ops.launches)
+                check_launches(f"dist {tag}", run_launches, {
+                    "msp_update": steps, "gaussian_nbody": 0,
+                    "m2l_separable": m2l_per_update * (steps // interval) if method == "fmm"
+                    else 0})
+                for k, v in run_launches.items():
+                    launches[k] += v
+                check_same_state(f"dist {tag} (NCCL, p=1) vs single device", dst, st)
+                if not np.array_equal(dsyn, syn):
+                    raise AssertionError(f"dist {tag}: synapse records differ")
+                # Records bit for bit, and the collectives of an activity
+                # chunk and of an update step, from the final state.
+                group.reset()
+                dst2, drecs = deng.simulate(dst, interval - 1, seed=seed)
+                chunk = {k: dict(v) for k, v in group.counts.items()}
+                group.reset()
+                dst3, drecs3 = deng.simulate(dst2, 1, seed=seed)
+                upd = {k: dict(v) for k, v in group.counts.items()}
+                st2, recs = eng.simulate(st, interval - 1, seed=seed)
+                st3, recs3 = eng.simulate(st2, 1, seed=seed)
+                for a, b in zip(drecs + drecs3, recs + recs3):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"dist {tag}: records differ")
+                check_same_state(f"dist {tag} after the update step", dst3, st3)
+                per_step = {k: round(v["bytes"] / (interval - 1)) for k, v in chunk.items()}
+                upd_bytes = {k: v["bytes"] - (per_step[k] if k != "scatter_sum" else 0)
+                             for k, v in upd.items()}
+                model = dict(deng.find_phase_work(), **deng.pyramid_exchange_payload())
+                out["runs"][tag] = dict(launches=run_launches,
+                                        step_ms=float(np.mean(dstep_s)) * 1e3,
+                                        update_s=dupdate_s, bytes_per_step=per_step,
+                                        update_bytes=upd_bytes, model=model,
+                                        ref_step_ms=float(np.mean(step_s)) * 1e3,
+                                        ref_update_s=update_s)
+                log(f"[dist] NCCL p=1 {tag} ({method}): records, spikes, edge tables and every "
+                    f"neuron field bit for bit equal to the single-device run; step "
+                    f"{np.mean(dstep_s) * 1e3:.3f} ms (single device {np.mean(step_s) * 1e3:.3f}"
+                    f" ms, phase 4 {main['step_ms']:.3f} ms); update "
+                    f"{[round(t, 4) for t in dupdate_s]} s (single device "
+                    f"{[round(t, 4) for t in update_s]} s, phase 4 "
+                    f"{[round(t, 4) for t in main['update_s']]} s); launches {run_launches}")
+                log(f"[dist]   collective bytes per activity step {per_step}; in the update "
+                    f"step beyond it {upd_bytes}; calls in the update step "
+                    f"{ {k: v['calls'] for k, v in upd.items()} }; modelled elements {model}")
+                del deng, dst, dst2, dst3
+                torch.cuda.empty_cache()
+            del refs
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+    # (b) p ranks emulated on the card at 2^20, on the vacancies of a
+    # single-device state after 300 steps.
+    ecfg = EngineConfig(domain=MAIN_DOMAIN)
+    eng = PlasticityEngine(sorted_positions(pos, ecfg), msp_cfg, FMMConfig(), ecfg)
+    st, _, _, _ = timed_run(eng, seed, steps)
+    emulated_m2l = 0
+    for p in (2, 4, 8):
+        secs, partial_m2l, unordered = emulated_helpers(eng, st, p, seed)
+        # Every rank scores its owned boxes at every valid level: one launch each.
+        check_launches(f"dist p={p} per-rank descents", {"m2l_separable": partial_m2l},
+                       {"m2l_separable": p * m2l_per_update})
+        emulated_m2l += partial_m2l
+        log(f"[dist] p={p} emulated on the card at n={eng.n}: merged owner-span pyramid, "
+            f"merged descent maps, leaf rows, splitter-merged conflicts and slot-range insert "
+            f"bit for bit equal to the single-device functions ({secs:.1f} s); the per-rank "
+            f"descents launched m2l_separable {partial_m2l} times; torch.sum partials in "
+            f"place of the fixed-order tree would differ at (level.field:elements) "
+            f"{unordered or 'none'}")
+    log(f"[dist] launches of the four distributed engine runs {launches}; of the emulated "
+        f"per-rank descents: m2l_separable {emulated_m2l}")
+    del eng, st
+    torch.cuda.empty_cache()
+
+    # (c) gloo ranks on the CPU at N = 256 (phase 3's configuration on the
+    # sorted positions) against the card's single-device run.
+    small_pos = np.random.default_rng(seed).uniform(0, 1000.0, (256, 3)).astype(np.float32)
+    scfg, sfmm = EngineConfig(), FMMConfig(c1=8, c2=8)
+    g = np.random.default_rng(seed + 1)
+    arrays = dict(x=np.full(256, msp_cfg.x0, np.float32), refrac=np.zeros(256, np.int32),
+                  spiked=np.zeros(256, bool), calcium=g.uniform(0.4, 0.7, 256).astype(np.float32),
+                  ax_elems=g.uniform(0, 6, 256).astype(np.float32),
+                  den_elems=g.uniform(0, 6, 256).astype(np.float32),
+                  src=np.zeros(256 * 64, np.int32), dst=np.zeros(256 * 64, np.int32),
+                  valid=np.zeros(256 * 64, bool), step=np.int32(0), dropped=np.int32(0))
+    seng = PlasticityEngine(sorted_positions(small_pos, scfg), msp_cfg, sfmm, scfg)
+    sst, srecs = seng.simulate(convert.from_jax_state(arrays, "cuda"), steps,
+                               noise=CpuDraws(seed, seng.device))
+    t = time.perf_counter()
+    jobs = [Job(small_pos, msp_cfg, sfmm, scfg, opts, steps, seed=seed, state=arrays)
+            for opts in ({}, dict(pyramid_exchange="routed", routed_shared_levels=0))]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:     # both rank groups at once
+        results = {p: pool.submit(run_ranks, p, jobs, "cpu", 240.0, 60.0) for p in (2, 4)}
+        for p, fut in results.items():
+            for opts, res in zip(("default", "routed"), fut.result()):
+                bad = same_run(res, sst, srecs)
+                if bad:
+                    raise AssertionError(f"dist gloo p={p} {opts}: differs from the card's "
+                                         f"single-device run in {bad}")
+    log(f"[dist] gloo p=2 and p=4 (spawned CPU processes), N=256, 300 steps, default and "
+        f"routed: records and whole state bit for bit equal to the card's single-device run "
+        f"(synapses {int(srecs.num_synapses[-1])}; {time.perf_counter() - t:.1f} s)")
+
+    # (d) the census of the 2^20 structure.
+    t = time.perf_counter()
+    out["census"] = {}
+    for p in (1, 4, 64, 256, 512):
+        c = brain_dryrun.census(pos, p, ecfg)
+        out["census"][p] = c
+        log(f"[dist] census p={p}: find phase {c['find_phase_work']['sharded']}, pyramid "
+            f"exchange {c['pyramid_exchange_payload']}, pyramid elements "
+            f"{c['pyramid_elements_per_device']}")
+    log(f"[dist] census in {time.perf_counter() - t:.1f} s")
+    out["launches"] = launches
+    out["emulated_launches"] = {"m2l_separable": emulated_m2l}
     return out
 
 
@@ -1374,7 +1690,7 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes", "serve")
+          "sweep", "m2m", "probes", "serve", "dist")
 
 
 def main() -> int:
@@ -1424,6 +1740,8 @@ def main() -> int:
             run[name] = phase_probes(args.seed)
         elif name == "serve":
             run[name] = phase_serve(args.seed, run["sweep"])
+        elif name == "dist":
+            run[name] = phase_dist(args.seed, run["main"])
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -1440,9 +1758,13 @@ def main() -> int:
     # msp_update also at the sweep's shape (one launch over K x 2^20 neurons).
     kernels[0]["sweep_shape"] = dict(launches=run["sweep"]["launches"]["msp_update"],
                                      **run["sweep"]["msp"])
-    # And both on the serve phase's path.
+    # And both on the serve phase's path and the distributed engine's (its
+    # four runs at world size 1); m2l_separable also in the emulated p-rank
+    # descents.
     for k in kernels[:2]:
         k["serve_launches"] = run["serve"]["launches"][k["name"]]
+        k["dist_launches"] = run["dist"]["launches"][k["name"]]
+    kernels[1]["dist_emulated_launches"] = run["dist"]["emulated_launches"]["m2l_separable"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,7 @@ STATE_FIELDS = tuple(NEURON_FIELDS) + tuple(EDGE_FIELDS) + ("step", "dropped")
 # can take over (the JAX defaults, and every backend: the port has no
 # backend switch, its kernels run wherever a card is).
 _ANY = object()
-_JAX_ONLY = {"backend": _ANY, "taylor_chunk": 1 << 30}
+_JAX_ONLY = {"backend": _ANY}
 
 
 def from_jax_state(arrays: dict, device: str | torch.device = "cuda") -> SimState:
@@ -106,6 +106,20 @@ def _port_config(cls, fields: dict):
         else:
             raise KeyError(f"{cls.__name__} has no field {k!r}")
     return cls(**kept)
+
+
+DISTRIBUTED_OPTIONS = ("pyramid_partials", "find_phase", "pyramid_exchange",
+                       "routed_shared_levels")
+
+
+def distributed_options_from_jax(fields: dict) -> dict:
+    """The keyword options of the port's `DistributedPlasticityEngine` from a
+    JAX `DistributedPlasticityEngine`'s attributes of the same names (the
+    engine validates their values)."""
+    unknown = set(fields) - set(DISTRIBUTED_OPTIONS)
+    if unknown:
+        raise KeyError(f"DistributedPlasticityEngine has no option {sorted(unknown)}")
+    return dict(fields)
 
 
 def configs_from_jax(msp: dict, fmm: dict, engine: dict):

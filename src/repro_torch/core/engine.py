@@ -125,9 +125,17 @@ def activity_step(neurons: NeuronState, edges: SynapseState, sign, u: torch.Tens
 
 
 def step_records(neurons: NeuronState, edges: SynapseState, n_active=None) -> StepRecord:
-    """The step's records over the last axis: order-fixed reductions
-    (synapses.det_sum) times the reciprocal of the row count, as the JAX
-    engine computes them.
+    """The step's records over the last axis (`records` of the neurons'
+    calcium and spikes and the edge table's synapse count)."""
+    return records(neurons.calcium, neurons.spiked,
+                   edges.valid.sum(dim=-1, dtype=torch.int32), n_active)
+
+
+def records(calcium: torch.Tensor, spiked: torch.Tensor, num_synapses: torch.Tensor,
+            n_active=None) -> StepRecord:
+    """Order-fixed reductions (synapses.det_sum) of calcium and spikes over
+    the last axis, times the reciprocal of the row count, as the JAX engine
+    computes them.
 
     n_active: None (every row counts), or the active row count of padded
     state, an int or (K,) ints for a (K, n) batch.  Rows past it are masked
@@ -135,7 +143,6 @@ def step_records(neurons: NeuronState, edges: SynapseState, n_active=None) -> St
     and a halving tree over [active | zeros] adds what the tree over the
     active rows adds, so the records are the isolated run's bit for bit."""
     with record_function("step.records"):
-        calcium = neurons.calcium
         n = calcium.shape[-1]
         guard = None
         if n_active is None:
@@ -158,8 +165,8 @@ def step_records(neurons: NeuronState, edges: SynapseState, n_active=None) -> St
         return StepRecord(
             calcium_mean=ca_mean,
             calcium_std=torch.sqrt(var.double()).float(),
-            num_synapses=edges.valid.sum(dim=-1, dtype=torch.int32),
-            spike_rate=synapses.det_sum(neurons.spiked.to(torch.float32)) * inv)
+            num_synapses=num_synapses,
+            spike_rate=synapses.det_sum(spiked.to(torch.float32)) * inv)
 
 
 def stack_records(recs, device) -> StepRecord:
@@ -251,18 +258,23 @@ class PlasticityEngine:
 
     def _runtime_sign(self, params: Optional[KernelParams],
                       n_active: Optional[int] = None) -> Optional[torch.Tensor]:
-        """(n,) +1/-1 sign vector from the params' inhibitory fraction (None
-        = all excitatory): the first floor(float32(f) * float32(count))
-        neurons are inhibitory, count = n, or n_active in a padded state (the
-        reference's traced count; pad rows get +1)."""
-        if params is None:
-            if n_active is None or self.sign is None:
-                return self.sign
-            frac = self.engine_cfg.inhibitory_fraction
-        else:
-            frac = params.inhibitory_fraction
+        """(n,) +1/-1 sign vector (None = all excitatory); count = n, or
+        n_active in a padded state, whose pad rows get +1.
+
+        Without params the first int(f * count) neurons are inhibitory, in
+        float64, as the isolated engine of count neurons counts them, so a
+        padded slot takes its isolated run's sign.  With params the first
+        floor(float32(f) * float32(count)), the reference's traced count
+        (`EnsembleEngine`); the two differ at some (f, count), e.g.
+        f = 0.35, count = 180.  The reference takes the traced count for
+        padded slots too; the port does not, deliberately."""
         count = self.n if n_active is None else n_active
-        n_inh = np.floor(np.float32(frac) * np.float32(count))
+        if params is None:
+            if n_active is None:
+                return self.sign
+            n_inh = int(self.engine_cfg.inhibitory_fraction * count)
+        else:
+            n_inh = np.floor(np.float32(params.inhibitory_fraction) * np.float32(count))
         if n_inh <= 0:
             return None
         idx = np.arange(self.n, dtype=np.float32)
@@ -271,8 +283,8 @@ class PlasticityEngine:
 
     def prefix_engine(self, m: int) -> "PlasticityEngine":
         """The engine of the first m positions at this engine's octree depth
-        (cached per m): the isolated engine of an m-neuron session in a
-        padded state of this engine."""
+        (cached per m until `drop_prefix(m)`): the isolated engine of an
+        m-neuron session in a padded state of this engine."""
         if m == self.n:
             return self
         if m not in self._prefixes:
@@ -280,6 +292,14 @@ class PlasticityEngine:
             self._prefixes[m] = PlasticityEngine(self.positions_np[:m], self.msp_cfg,
                                                  self.fmm_cfg, cfg, self.device)
         return self._prefixes[m]
+
+    def drop_prefix(self, m: Optional[int] = None) -> None:
+        """Free the cached prefix engine of size m (every one for None): its
+        positions, rows and octree tables hold device memory."""
+        if m is None:
+            self._prefixes.clear()
+        else:
+            self._prefixes.pop(m, None)
 
     # -- phase 3: connectivity update --------------------------------------
     def connectivity_update(self, state: SimState, noise, step: int,

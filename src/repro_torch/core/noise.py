@@ -94,6 +94,16 @@ class GeneratorNoise:
         return self._bits((rows.shape[0],), _CONFLICT, step)
 
 
+def sliced(noise, draw, idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """draw(idx)[lo:hi]: the rows [lo, hi) of a draw over the index set
+    `idx`, as a rank of the distributed engine takes its own rows.  A noise
+    keyed by index (`CounterNoise.keyed`) draws those rows alone; any other
+    reads only the number of indices, so the whole set is drawn and cut."""
+    if getattr(noise, "keyed", False):
+        return draw(idx[lo:hi])
+    return draw(idx)[lo:hi]
+
+
 def for_config(rng: str, seed: int, device):
     """The default draw source of `EngineConfig.rng`: a `GeneratorNoise`
     ("batched") or a `CounterNoise` ("counter") seeded from `seed`."""

@@ -10,8 +10,12 @@ built once (`build_structure`, a copy of the reference's logic), and
 Each connectivity update rebuilds the per-box sums of every level
 (`build_pyramid`).  Neurons sorted by Morton code make every box a
 contiguous run of the sorted order, so each level is reduced over those
-runs: gathered into a (boxes, longest run) slab and summed along the run.
-That is deterministic on the card, where a float `index_add_` is not.
+runs: gathered into a (boxes, longest run) slab and summed along the run
+by a fixed halving tree (`_run_sums`).  That is deterministic on the card,
+where a float `index_add_` is not, and a box sums alike whichever boxes
+share the slab: the distributed engine's owner-span partials (`owner_spans`,
+`build_pyramid_spans`: each rank sums only the boxes whose first member
+it holds, from its span of the rows) add up to this build bit for bit.
 Barnes-Hut reads only the dendrite counts and centroids, and builds just
 those (`build_dendrite_pyramid`).
 
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,27 +201,49 @@ class LevelData(NamedTuple):
     moms: torch.Tensor      # (B, k)  monomial moments of axons about gc
 
 
-def _run_sums(vals_sorted: torch.Tensor, layout: LevelLayout) -> torch.Tensor:
+def _run_sums(vals_sorted: torch.Tensor, layout: LevelLayout,
+              ordered: bool = True) -> torch.Tensor:
     """Per-box sums of Morton-sorted rows: (n + 1, C) with a zero last row ->
-    (8^l, C)."""
-    return vals_sorted[layout.runs].sum(dim=1)
+    (boxes of the layout, C).
+
+    ordered: the run slots are added by a fixed halving tree (slot i + h
+    onto slot i, h = w // 2; an odd width's last slot goes to a carry that
+    is added last).  The association depends only on the table's width w,
+    so a box sums alike whichever boxes share its table.  `torch.sum` picks
+    its order on the card from the whole shape: a rank holding a few boxes
+    of a level rounds them otherwise (the owner-span partials,
+    `build_level_raw_span`).  Unordered (`torch.sum`, faster) is for builds
+    that no partial is added to."""
+    x = vals_sorted[layout.runs]
+    if not ordered:
+        return x.sum(dim=1)
+    carry = None
+    while x.shape[1] > 1:
+        w = x.shape[1]
+        h = w // 2
+        if w % 2:
+            carry = x[:, w - 1] if carry is None else carry + x[:, w - 1]
+        x = x[:, :h] + x[:, h:2 * h]
+    return x[:, 0] if carry is None else x[:, 0] + carry
 
 
 def build_level_raw(layout: LevelLayout, pos_s: torch.Tensor, ax_s: torch.Tensor,
-                    den_s: torch.Tensor, delta: float, p: int = DEFAULT_ORDER):
+                    den_s: torch.Tensor, delta: float, p: int = DEFAULT_ORDER,
+                    ordered: bool = True):
     """The raw per-box sums of one level, from Morton-sorted positions and
     vacancies, each with a zero last row.  Returns (den_w, ax_w, den_pos,
-    ax_pos, herm_raw, moms)."""
-    scalars = _run_sums(torch.stack([den_s, ax_s], dim=1), layout)
-    den_pos = _run_sums(den_s[:, None] * pos_s, layout)
-    ax_pos = _run_sums(ax_s[:, None] * pos_s, layout)
+    ax_pos, herm_raw, moms).  ordered: `_run_sums`'."""
+    sums = lambda v: _run_sums(v, layout, ordered)
+    scalars = sums(torch.stack([den_s, ax_s], dim=1))
+    den_pos = sums(den_s[:, None] * pos_s)
+    ax_pos = sums(ax_s[:, None] * pos_s)
     # The zero row's box id is 0; its vacancies are 0, so its features add 0.
     scaled = (pos_s - layout.centers[layout.box_sorted]) / math.sqrt(delta)
     feats = mi.monomials(scaled, p)                          # (n, k)
     # A_alpha(B) = 1/alpha! sum_{j in B} den_j ((s_j - gc_B)/sqrt(delta))^alpha;
     # the 1/alpha! is applied in finalize_level.
-    herm_raw = _run_sums(den_s[:, None] * feats, layout)
-    moms = _run_sums(ax_s[:, None] * feats, layout)
+    herm_raw = sums(den_s[:, None] * feats)
+    moms = sums(ax_s[:, None] * feats)
     return scalars[:, 0], scalars[:, 1], den_pos, ax_pos, herm_raw, moms
 
 
@@ -269,12 +295,214 @@ def build_dendrite_pyramid(tree: OctreeTensors, positions: torch.Tensor,
     return [_dendrite_level(layout, pos_s, den_s) for layout in tree.levels]
 
 
-def _dendrite_level(layout: LevelLayout, pos_s: torch.Tensor,
-                    den_s: torch.Tensor) -> DendriteLevel:
-    den_w = _run_sums(den_s[:, None], layout)[:, 0]
-    den_pos = _run_sums(den_s[:, None] * pos_s, layout)
+def dendrite_level_raw(layout: LevelLayout, pos_s: torch.Tensor, den_s: torch.Tensor,
+                       ordered: bool = True):
+    """`build_level_raw`'s (den_w, den_pos), alone."""
+    return (_run_sums(den_s[:, None], layout, ordered)[:, 0],
+            _run_sums(den_s[:, None] * pos_s, layout, ordered))
+
+
+def finalize_dendrite_level(raw) -> DendriteLevel:
+    den_w, den_pos = raw
     return DendriteLevel(den_w=den_w,
                          den_c=den_pos / torch.clamp(den_w, min=1e-30)[:, None])
+
+
+def _dendrite_level(layout: LevelLayout, pos_s: torch.Tensor, den_s: torch.Tensor,
+                    ordered: bool = True) -> DendriteLevel:
+    return finalize_dendrite_level(dendrite_level_raw(layout, pos_s, den_s, ordered))
+
+
+# ---------------------------------------------------------------------------
+# Owner-span decomposition (the distributed upward pass)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OwnerSpans:
+    """Per-level owner spans of a `num_shards`-way Morton decomposition (a
+    copy of the reference's, field for field).
+
+    Neurons are Morton-sorted.  A box is owned by the rank holding its FIRST
+    member; owners are nondecreasing along the sorted neurons, so rank d's
+    owned boxes cover one contiguous neuron range [start[l, d], stop[l, d])
+    per level l, its owner span.  Spans partition [0, n) at every level; a
+    rank owning no box at a level has start == stop.  `width[l]` is the
+    level's widest span (at least 1), so width[0] == n.  The occ_* fields
+    are the same spans over the occupied-box list of each level
+    (`OctreeStructure.occupied_at`): the sharded descent scores occupied
+    box j on the rank whose [occ_start, occ_stop) holds j."""
+    num_shards: int
+    start: np.ndarray            # (depth+1, p) int32 span starts
+    stop: np.ndarray             # (depth+1, p) int32 span stops
+    width: Tuple[int, ...]       # per-level widest span
+    neuron_owner: Tuple[np.ndarray, ...]  # per-level (n,) int32 box owners
+    occ_start: np.ndarray        # (depth+1, p) int32 occupied-list span starts
+    occ_stop: np.ndarray         # (depth+1, p) int32 occupied-list span stops
+    occ_width: Tuple[int, ...]   # per-level widest occupied span (>= 1)
+
+    @property
+    def elements_per_device(self) -> int:
+        """Segment-sum input elements of the whole pyramid on the busiest
+        rank of each level."""
+        return int(sum(self.width))
+
+    @property
+    def shardable_elements_per_device(self) -> int:
+        """The same without the single-box root level."""
+        return int(sum(self.width[1:]))
+
+    @property
+    def descent_boxes_per_device(self) -> int:
+        """Occupied source boxes the busiest rank of each level scores over
+        the sharded descent (levels 1..depth)."""
+        return int(sum(self.occ_width[1:]))
+
+
+def _first_members(ids: np.ndarray):
+    """(first-member flags, index of each neuron's box's first member)."""
+    first = np.r_[True, ids[1:] != ids[:-1]]
+    return first, np.maximum.accumulate(np.where(first, np.arange(ids.shape[0]), 0))
+
+
+def owner_spans(structure: OctreeStructure, num_shards: int) -> OwnerSpans:
+    """Owner spans of every level for `num_shards` equal Morton shards.
+    Needs Morton-sorted neurons and n % num_shards == 0."""
+    n = structure.n
+    if n % num_shards:
+        raise ValueError(f"n={n} must divide into {num_shards} shards")
+    n_local = n // num_shards
+    depth = structure.depth
+    start = np.zeros((depth + 1, num_shards), np.int32)
+    stop = np.zeros((depth + 1, num_shards), np.int32)
+    occ_start = np.zeros((depth + 1, num_shards), np.int32)
+    occ_stop = np.zeros((depth + 1, num_shards), np.int32)
+    width, occ_width, owners = [], [], []
+    ranks = np.arange(num_shards)
+    for level in range(depth + 1):
+        ids = structure.box_of(level)
+        if np.any(ids[1:] < ids[:-1]):
+            raise ValueError("owner_spans needs Morton-sorted neurons "
+                             "(box ids must be nondecreasing)")
+        first, first_idx = _first_members(ids)
+        owner = (first_idx // n_local).astype(np.int32)   # nondecreasing
+        start[level] = np.searchsorted(owner, ranks, side="left")
+        stop[level] = np.searchsorted(owner, ranks, side="right")
+        width.append(max(int((stop[level] - start[level]).max()), 1))
+        owners.append(owner)
+        # Occupied box j starts at the j-th first member; its owner is that
+        # neuron's.
+        occ_owner = owner[np.flatnonzero(first)]
+        occ_start[level] = np.searchsorted(occ_owner, ranks, side="left")
+        occ_stop[level] = np.searchsorted(occ_owner, ranks, side="right")
+        occ_width.append(max(int((occ_stop[level] - occ_start[level]).max()), 1))
+    return OwnerSpans(num_shards=num_shards, start=start, stop=stop, width=tuple(width),
+                      neuron_owner=tuple(owners), occ_start=occ_start, occ_stop=occ_stop,
+                      occ_width=tuple(occ_width))
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedTables:
+    """Static request tables of the request-routed pyramid exchange (a copy
+    of the reference's).  Per level l: ``occ_ids[l]`` (num_shards,
+    occ_width[l]) int32, rank r's occupied-box window (its owned occupied
+    boxes, the slice start clamped so the window stays inside the list), the
+    source boxes whose interaction children rank r requests; and
+    ``box_owner[l]`` (8^l,) int32, the owner of every occupied box, -1
+    elsewhere."""
+    num_shards: int
+    occ_ids: Tuple[np.ndarray, ...]
+    box_owner: Tuple[np.ndarray, ...]
+
+
+def routed_tables(structure: OctreeStructure, spans: OwnerSpans) -> RoutedTables:
+    """Host numpy: positions never move, so which boxes a rank scores and who
+    owns each box are known before the first step."""
+    n_local = structure.n // spans.num_shards
+    occ_ids, box_owner = [], []
+    for level in range(structure.depth + 1):
+        first, first_idx = _first_members(structure.box_of(level))
+        occ_owner = (first_idx[first] // n_local).astype(np.int32)
+        occ = structure.occupied_at(level)
+        width = spans.occ_width[level]
+        base = np.clip(spans.occ_start[level], 0, max(occ.shape[0] - width, 0))
+        occ_ids.append(occ[base[:, None] + np.arange(width)[None, :]].astype(np.int32))
+        dense = np.full(structure.boxes_at(level), -1, np.int32)
+        dense[occ] = occ_owner
+        box_owner.append(dense)
+    return RoutedTables(num_shards=spans.num_shards, occ_ids=tuple(occ_ids),
+                        box_owner=tuple(box_owner))
+
+
+class SpanLevel(NamedTuple):
+    """One rank's owner span of one level on a device."""
+    layout: LevelLayout    # the owned boxes: occupied = their ids, runs and
+                           # box_sorted over the span's rows (+ a zero row)
+    start: int
+    stop: int
+
+
+def span_layouts(tree: OctreeTensors, spans: OwnerSpans, rank: int) -> List[SpanLevel]:
+    """Rank `rank`'s device tables for `build_pyramid_spans`: per level, its
+    owned boxes' runs at the level's full run width, as row indices into its
+    span's rows with the zero row at stop - start."""
+    structure = tree.structure
+    dev = tree.order.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    out = []
+    for l, full in enumerate(tree.levels):
+        start, stop = int(spans.start[l, rank]), int(spans.stop[l, rank])
+        shift = 3 * (structure.depth - l)
+        box_rows = structure.leaf_of[structure.order[start:stop]].astype(np.int64) >> shift
+        owned = np.unique(box_rows)
+        stride = 8 ** (structure.depth - l)
+        starts = structure.leaf_start[::stride].astype(np.int64)
+        counts = np.diff(starts)[owned]
+        slot = np.arange(full.runs.shape[1], dtype=np.int64)[None, :]
+        runs = np.where(slot < counts[:, None], starts[owned][:, None] - start + slot,
+                        stop - start)
+        out.append(SpanLevel(LevelLayout(centers=full.centers, occupied=t(owned),
+                                         box_sorted=t(np.append(box_rows, 0)), runs=t(runs)),
+                             start, stop))
+    return out
+
+
+def _scatter_boxes(vals: torch.Tensor, ids: torch.Tensor, num_boxes: int) -> torch.Tensor:
+    out = vals.new_zeros((num_boxes,) + vals.shape[1:])
+    out[ids] = vals
+    return out
+
+
+def build_level_raw_span(span: SpanLevel, num_boxes: int, positions: torch.Tensor,
+                         ax_vac: torch.Tensor, den_vac: torch.Tensor, delta: float,
+                         p: int = DEFAULT_ORDER, dendrite_only: bool = False):
+    """`build_level_raw` of one rank's owned boxes (or `dendrite_level_raw`),
+    dense over the level's boxes with exact zeros at the boxes of other
+    ranks.  Reads only the span's rows of the (Morton-sorted, unpadded)
+    vectors.  Each owned box is summed from the same per-row values, at the
+    same run width and association as the single-device build, so adding
+    the ranks' partials gives `build_pyramid`'s sums bit for bit (one real
+    sum plus zeros per box)."""
+    cut = lambda v: torch.cat([v[span.start:span.stop], v.new_zeros((1,) + v.shape[1:])])
+    if dendrite_only:
+        raw = dendrite_level_raw(span.layout, cut(positions), cut(den_vac))
+    else:
+        raw = build_level_raw(span.layout, cut(positions), cut(ax_vac), cut(den_vac), delta, p)
+    return tuple(_scatter_boxes(x, span.layout.occupied, num_boxes) for x in raw)
+
+
+def build_pyramid_spans(tree: OctreeTensors, spans: List[SpanLevel], positions: torch.Tensor,
+                        ax_vac: torch.Tensor, den_vac: torch.Tensor, delta: float,
+                        p: int = DEFAULT_ORDER, dendrite_only: bool = False) -> List[tuple]:
+    """One rank's partial raw pyramid (one raw tuple per level) from its
+    `span_layouts`.  Summing every rank's partials and applying
+    `finalize_level` (or `finalize_dendrite_level`) reproduces
+    `build_pyramid` (`build_dendrite_pyramid`) bit for bit."""
+    out = []
+    for l, span in enumerate(spans):
+        with record_function(f"pyramid.span{l}"):
+            out.append(build_level_raw_span(span, tree.structure.boxes_at(l), positions,
+                                            ax_vac, den_vac, delta, p, dendrite_only))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -312,8 +540,9 @@ def build_pyramid_m2m(tree: OctreeTensors, positions: torch.Tensor,
     with record_function("pyramid.leaf"):
         pos_s, ax_s, den_s = (_sorted_padded(tree, v) for v in (positions, ax_vac, den_vac))
         leaf = tree.levels[depth]
+        # No distributed path builds m2m: the leaf level takes torch.sum.
         levels[depth] = finalize_level(
-            leaf.centers, build_level_raw(leaf, pos_s, ax_s, den_s, delta, p), p)
+            leaf.centers, build_level_raw(leaf, pos_s, ax_s, den_s, delta, p, ordered=False), p)
     k = p ** 3
     for l in range(depth - 1, -1, -1):
         with record_function(f"pyramid.merge{l}"):
@@ -340,7 +569,7 @@ def build_dendrite_pyramid_m2m(tree: OctreeTensors, positions: torch.Tensor,
     depth = structure.depth
     pos_s, den_s = _sorted_padded(tree, positions), _sorted_padded(tree, den_vac)
     levels = [None] * (depth + 1)
-    levels[depth] = _dendrite_level(tree.levels[depth], pos_s, den_s)
+    levels[depth] = _dendrite_level(tree.levels[depth], pos_s, den_s, ordered=False)
     for l in range(depth - 1, -1, -1):
         child = levels[l + 1]
         levels[l] = DendriteLevel(*_merge_mass(child.den_w, child.den_c,

@@ -98,6 +98,8 @@ class CounterNoise:
     seed: any non-negative int (a session's seed).  The index tensors are
     int64 on the device the draws are wanted on."""
 
+    keyed = True    # a draw over a subset of indices is that subset of the draw
+
     def __init__(self, seed: int, device: str | torch.device = "cuda"):
         if seed < 0:
             raise ValueError(f"seed must be non-negative, got {seed}")

@@ -7,6 +7,8 @@ over dst; deletion ranks a neuron's edges by random priorities and drops the
 top of the ranking on each side; conflict resolution accepts requests per
 dendrite neuron in random priority order until the vacancy budget is spent.
 
+The distributed engine's sharded update uses `resolve_conflicts_span` (the
+sort split by row ownership) and `insert_span` (one rank's slot range).
 Every result here is integer or an exact float count, so it is the same on
 every run and device: ranks come from stable sorts, degrees from integer
 counts, and `synaptic_input` adds +-1.0 terms, which sum exactly in any
@@ -168,6 +170,56 @@ def resolve_conflicts(partner: torch.Tensor, request_cnt: torch.Tensor,
     return torch.where(valid, accepted, 0).to(torch.int32)
 
 
+def resolve_conflicts_span(partner_l: torch.Tensor, request_cnt_l: torch.Tensor,
+                           den_capacity: torch.Tensor, prio_l: torch.Tensor, *,
+                           rank: int, gather) -> torch.Tensor:
+    """`resolve_conflicts` with the sort sharded by row ownership: rank r
+    holds the request rows [r*m, (r+1)*m), m = n/p, with their priorities
+    (the same draws as the full resolve's, rows sliced), sorts only those,
+    and finds each row's place in the global order from the other ranks'
+    sorted runs: one gather of their (segment, priority) keys and one of
+    their inclusive request counts, then a binary search per rank.
+
+    The global order is a stable sort by (segment, priority, row), and rows
+    are rank-major, so at an equal key a lower rank's rows come first.
+    Everything is integer, so the acceptance equals `resolve_conflicts` on
+    the gathered requests exactly.
+
+    partner_l, request_cnt_l, prio_l: this rank's (m,) rows.
+    den_capacity: the replicated (n,) int vacancy budget.
+    gather: concatenates a tensor of every rank along dim 0
+    (`launch.mesh.Group.gather`).
+    Returns the replicated (n,) int32 accepted counts."""
+    n = den_capacity.shape[0]
+    m = partner_l.shape[0]
+    p = n // m
+    valid = partner_l >= 0
+    seg = torch.where(valid, partner_l, n).long()
+    order = _sorted_order(seg, prio_l)
+    key_s = ((seg << 32) | prio_l)[order]
+    seg_s = seg[order]
+    cnt_s = torch.where(valid, request_cnt_l, 0).long()[order]
+    # Requests ahead of each row among this rank's own rows.
+    cum = torch.cumsum(cnt_s, dim=0) - cnt_s
+    before = cum - cum[_segment_starts(seg_s)]
+    # And among every other rank's: the requests of its rows with a smaller
+    # key (or an equal one, on a lower rank) in the same segment.
+    keys_g = gather(key_s).reshape(p, m)
+    ccnt_g = gather(torch.cumsum(cnt_s, dim=0).to(torch.int32)).reshape(p, m).long()
+    ranks = torch.arange(p, device=partner_l.device)[:, None]
+    q = key_s.expand(p, m).contiguous()
+    at = torch.where(ranks < rank, torch.searchsorted(keys_g, q, right=True),
+                     torch.searchsorted(keys_g, q))
+    seg0 = torch.searchsorted(keys_g, (seg_s << 32).expand(p, m).contiguous())
+    csum = lambda i: torch.where(i > 0, torch.gather(ccnt_g, 1, torch.clamp(i - 1, min=0)), 0)
+    before = before + torch.where(ranks != rank, csum(at) - csum(seg0), 0).sum(dim=0)
+    cap = torch.where(seg_s < n, den_capacity[torch.clamp(seg_s, max=n - 1)], 0).long()
+    acc_s = torch.minimum(torch.clamp(cap - before, min=0), cnt_s)
+    accepted = torch.empty_like(acc_s)
+    accepted[order] = acc_s
+    return gather(torch.where(valid, accepted, 0).to(torch.int32))
+
+
 def _stage_units(partner: torch.Tensor, accepted: torch.Tensor,
                  max_per_neuron: int):
     """Dense (n*k,) staging buffers of the accepted unit edges in request
@@ -205,3 +257,25 @@ def insert(state: SynapseState, partner: torch.Tensor, accepted: torch.Tensor,
     placed = take.sum()
     return (SynapseState(src=new_src, dst=new_dst, valid=state.valid | take),
             total_new - placed)
+
+
+def insert_span(state: SynapseState, partner: torch.Tensor, accepted: torch.Tensor,
+                max_per_neuron: int, *, free_offset) -> Tuple[SynapseState, torch.Tensor, int]:
+    """`insert` for one rank's contiguous slot range of the edge table.
+
+    partner/accepted: the replicated (n,) request vectors.  free_offset: the
+    number of free slots in the lower ranks' ranges, so the local free ranks
+    continue the global free-slot order.  Returns (new local state, units
+    placed here, units staged in all); the global dropped count is the
+    staged units minus the placed units summed over ranks.  All integer:
+    the local range equals that range of `insert` on the whole table."""
+    nk = partner.shape[0] * max_per_neuron
+    buf_src, buf_dst, total_new = _stage_units(partner, accepted, max_per_neuron)
+    free = ~state.valid
+    free_rank = free_offset + torch.cumsum(free, dim=0) - 1
+    take = free & (free_rank < total_new) & (free_rank < nk)
+    pick = torch.clamp(free_rank, max=nk - 1)
+    new_src = torch.where(take, buf_src[pick], state.src)
+    new_dst = torch.where(take, buf_dst[pick], state.dst)
+    return (SynapseState(src=new_src, dst=new_dst, valid=state.valid | take),
+            take.sum(), total_new)

@@ -86,6 +86,13 @@ class SessionResult:
     n_neurons: int
 
 
+def _holds_rows(s: sess.Session) -> bool:
+    """Live, evicted, or queued for a restore: the session will update
+    again."""
+    return s.status in (sess.RUNNING, sess.EVICTED) or (
+        s.status == sess.QUEUED and s.steps_done > 0)
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
     """A host copy that later writes to the slot cannot reach (on the CPU,
     `.cpu()` would return the slot's own tensor)."""
@@ -356,6 +363,11 @@ class SimulationService:
     def _finish(self, s: sess.Session, slot: int):
         s.status = sess.FINISHED
         s.slot = None
+        # The engine caches one prefix engine per session size; keep it only
+        # while a live or evicted session of that size may update again.
+        n = s.request.n_neurons
+        if not any(o.request.n_neurons == n and _holds_rows(o) for o in self.sessions.values()):
+            self.engine.drop_prefix(n)
         s.final_state = _to_host(replica(self.states, slot))
         if self.probes is not None and s.request.record_probes:
             rows = s.steps_done
@@ -403,3 +415,4 @@ class SimulationService:
         for mgr in self._managers.values():
             mgr.close()
         self._managers.clear()
+        self.engine.drop_prefix()

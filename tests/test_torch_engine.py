@@ -262,3 +262,40 @@ def test_step_do_update_overrides_the_schedule():
     assert int(rec.num_synapses) > 0
     forced, rec = eng.step(st._replace(step=42), noise, do_update=True)
     assert forced.step == 43 and int(rec.num_synapses) > 0
+
+
+@pytest.mark.parametrize("chunk", [5, 7])
+def test_taylor_chunk_matches_jax_and_the_unchunked_run(chunk):
+    """FMMConfig.taylor_chunk maps the Taylor tier over chunks of that many
+    source boxes: the run equals the JAX engine's with the same value (as
+    `runs` holds it: exact records and edge tables, calcium at rtol 1e-5)
+    and the port's unchunked run bit for bit.  The occupied-box counts are
+    8 and 63 here: 5 divides neither, 7 divides the second."""
+    chunked = dataclasses.replace(FMM_CFG, taylor_chunk=chunk)
+    pos, arrays = _mid_growth(N, SEED)
+    key = jax.random.key(SEED)
+    jm, jf, je = _jax_configs()
+    jeng = jengine.PlasticityEngine(pos, jm, dataclasses.replace(jf, taylor_chunk=chunk), je)
+    jst, jrecs = jeng.simulate(_jax_state(arrays), key, STEPS)
+    eng = engine.PlasticityEngine(pos, MSP_CFG, chunked, ENGINE_CFG, device="cpu")
+    occ = [eng.tree.levels[l].occupied.shape[0] for l in range(1, eng.structure.depth + 1)]
+    assert occ == [8, 63]
+    st, recs = eng.simulate(convert.from_jax_state(arrays, "cpu"), STEPS,
+                            noise=JaxReplayNoise(key))
+    np.testing.assert_array_equal(recs.num_synapses.numpy(), np.asarray(jrecs.num_synapses))
+    np.testing.assert_array_equal(recs.spike_rate.numpy(), np.asarray(jrecs.spike_rate))
+    np.testing.assert_allclose(recs.calcium_mean.numpy(), np.asarray(jrecs.calcium_mean),
+                               rtol=1e-5)
+    for name in ("src", "dst", "valid"):
+        np.testing.assert_array_equal(convert.to_numpy(st)[name],
+                                      np.asarray(getattr(jst.edges, name)), err_msg=name)
+    plain = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, ENGINE_CFG, device="cpu")
+    pst, precs = plain.simulate(convert.from_jax_state(arrays, "cpu"), STEPS,
+                                noise=JaxReplayNoise(key))
+    for a, b in zip(recs, precs):
+        assert torch.equal(a, b)
+    for a, b in zip(st.edges + st.neurons, pst.edges + pst.neurons):
+        assert torch.equal(a, b)
+    assert convert.configs_from_jax(dataclasses.asdict(jm), {**dataclasses.asdict(jf),
+                                                             "taylor_chunk": chunk},
+                                    dataclasses.asdict(je))[1] == chunked

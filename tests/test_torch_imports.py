@@ -36,7 +36,8 @@ def test_scan_covers_the_package():
     assert {"engine.py", "msp_update.py", "m2l_pair.py", "gaussian_nbody.py",
             "barnes_hut.py", "direct.py", "analysis.py", "ensemble.py", "probes.py",
             "manager.py", "sweep.py", "chip_smoke.py", "streams.py", "session.py",
-            "batcher.py", "service.py", "serve.py"} <= names
+            "batcher.py", "service.py", "serve.py", "distributed.py", "mesh.py", "rules.py",
+            "brain_dryrun.py"} <= names
 
 
 @pytest.fixture
@@ -60,6 +61,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.build_service(16, num_slots=1, round_steps=100, checkpoint_dir="unused")
+    from repro_torch.core.distributed import DistributedPlasticityEngine
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        DistributedPlasticityEngine(pos, mesh.ShapeGroup(1))
+    with pytest.raises(RuntimeError, match="cuda"):    # NCCL needs the card: no gloo fallback
+        mesh.make_data_group("file:///nonexistent/rendezvous", 0, 1)
     assert device.resolve("cpu") == torch.device("cpu")
 
 

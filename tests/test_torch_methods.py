@@ -196,20 +196,25 @@ def test_direct_with_no_vacant_dendrite_requests_nothing():
 
 
 def test_unported_search_options_raise():
-    """The sharded find phase (`row_start`, ROADMAP Queue 1 item 11) raises
-    on both Barnes-Hut entry points; counter draws are ported and run."""
+    """The sharded find phase's `row_start`/`row_count` (once unported and
+    raising) now run on both Barnes-Hut entry points: the rows of 4 ranks,
+    concatenated, are the full search bit for bit, with batched and counter
+    draws; counter draws run on the full search and the direct draw."""
     pos, ax, den, _, _, tree, levels = _problem(0, n=64, depth=2)
-    cfg, noise = traversal.FMMConfig(), GeneratorNoise(0, CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        barnes_hut.descend_barnes_hut(tree, levels, _t(pos), cfg, noise, 0, row_start=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        barnes_hut.find_partners_bh(tree, levels, _t(pos), _t(ax), _t(den), cfg, noise,
-                                    0, row_start=0)
-    counter = CounterNoise(0, CPU)
-    for got in (barnes_hut.find_partners_bh(tree, levels, _t(pos), _t(ax), _t(den), cfg,
-                                            counter, 0),
-                barnes_hut.find_partners_direct(_t(pos), _t(ax), _t(den), cfg, counter, 0)):
-        assert got.shape == (64,) and bool((got >= -1).all()) and bool((got >= 0).any())
+    cfg = traversal.FMMConfig()
+    for noise in (GeneratorNoise(0, CPU), CounterNoise(0, CPU)):
+        full_box = barnes_hut.descend_barnes_hut(tree, levels, _t(pos), cfg, noise, 0)
+        full = barnes_hut.find_partners_bh(tree, levels, _t(pos), _t(ax), _t(den), cfg,
+                                           noise, 0)
+        rows = [dict(row_start=16 * r, row_count=16) for r in range(4)]
+        box = torch.cat([barnes_hut.descend_barnes_hut(tree, levels, _t(pos), cfg, noise, 0,
+                                                       **kw) for kw in rows])
+        got = torch.cat([barnes_hut.find_partners_bh(tree, levels, _t(pos), _t(ax), _t(den),
+                                                     cfg, noise, 0, **kw) for kw in rows])
+        assert torch.equal(box, full_box) and torch.equal(got, full)
+        assert full.shape == (64,) and bool((full >= -1).all()) and bool((full >= 0).any())
+    got = barnes_hut.find_partners_direct(_t(pos), _t(ax), _t(den), cfg, CounterNoise(0, CPU), 0)
+    assert got.shape == (64,) and bool((got >= -1).all()) and bool((got >= 0).any())
 
 
 # -- the engine around them ---------------------------------------------------

@@ -105,6 +105,65 @@ def test_padded_run_equals_isolated_run(case, m):
         assert pad._runtime_sign(None, m) is not None
 
 
+@pytest.mark.parametrize("frac", [0.1, 0.2, 0.33, 0.35, 0.7])
+def test_padded_sign_equals_isolated_sign(frac):
+    """For every m up to a pool of 256, a padded slot's inhibitory rows are
+    the isolated m-neuron engine's (int(f * m) in float64), with +1 on the
+    pad rows.  floor(float32(f) * float32(m)) differs at f = 0.35, m = 180
+    and f = 0.7, m = 90."""
+    pos = np.random.default_rng(3).uniform(0, 1000, (256, 3)).astype(np.float32)
+    cfg = engine.EngineConfig(inhibitory_fraction=frac, depth=2)
+    pad = engine.PlasticityEngine(pos, MSP_CFG, FMM_CFG, cfg, device="cpu")
+    for m in range(1, 257):
+        iso = engine.PlasticityEngine(pos[:m], MSP_CFG, FMM_CFG, cfg, device="cpu")
+        want = torch.ones(256)
+        if iso.sign is not None:
+            want[:m] = iso.sign
+        got = pad._runtime_sign(None, m)
+        got = torch.ones(256) if got is None else got
+        assert torch.equal(got, want), f"f={frac} m={m}"
+
+
+def test_padded_run_at_a_float32_rounding_fraction_equals_isolated_run():
+    """f = 0.35, m = 180 in a pool of 256 (fmm, counter draws): int(f * m) =
+    62 inhibitory neurons in both runs (floor(float32(f) * float32(m)) would
+    make neuron 62 inhibitory too), so the padded run is its isolated run
+    bit for bit: records, neuron rows and edge tables, held every 10 steps
+    of 300.  Neuron 62 starts spiking (x = 1) with 16 synapses onto rows
+    100..115, so its sign reaches their x at once."""
+    pos = np.random.default_rng(42).uniform(0, 1000, (256, 3)).astype(np.float32)
+    msp_cfg = msp.MSPConfig.calibrated(speedup=SPEEDUP)
+    fmm_cfg = traversal.FMMConfig(c1=8, c2=8)
+    cfg = engine.EngineConfig(rng="counter", inhibitory_fraction=0.35)
+    pad = engine.PlasticityEngine(pos, msp_cfg, fmm_cfg, cfg, device="cpu")
+    iso = engine.PlasticityEngine(pos[:180], msp_cfg, fmm_cfg,
+                                  dataclasses.replace(cfg, depth=pad.structure.depth),
+                                  device="cpu")
+    assert int((iso.sign < 0).sum()) == 62
+    g = np.random.default_rng(5)
+    rows = {f: g.uniform(lo, hi, 180).astype(np.float32)
+            for f, lo, hi in (("calcium", 0.4, 0.7), ("ax_elems", 0, 6), ("den_elems", 1, 6))}
+    rows["x"] = np.full(180, msp_cfg.x0, np.float32)
+    rows["x"][62], rows["ax_elems"][62] = 1.0, 16.5
+
+    def start(eng):
+        st = eng.init_state()
+        pad_rows = lambda v: torch.as_tensor(np.pad(v, (0, eng.n - 180)))
+        edges = st.edges
+        src, dst, valid = edges.src.clone(), edges.dst.clone(), edges.valid.clone()
+        src[:16], dst[:16], valid[:16] = 62, torch.arange(100, 116), True
+        return st._replace(neurons=st.neurons._replace(**{f: pad_rows(v) for f, v in rows.items()}),
+                           edges=edges._replace(src=src, dst=dst, valid=valid))
+    st_p, st_i = start(pad), start(iso)
+    for chunk in range(PAD_STEPS // 10):
+        st_p, rec_p = pad.simulate(st_p, 10, seed=7, n_active=180)
+        st_i, rec_i = iso.simulate(st_i, 10, seed=7)
+        what = f"f=0.35 m=180 steps {10 * chunk}..{10 * chunk + 9}"
+        _assert_records(rec_p, rec_i, what)
+        _assert_state_prefix(st_p, st_i, iso, 180, what)
+    assert int(rec_i.num_synapses[-1]) > 16
+
+
 @pytest.mark.parametrize("m", [17, 48])
 def test_forced_deletion_padded_equals_isolated(m):
     """The elements are zeroed on the step before an update, so that update

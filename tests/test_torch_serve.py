@@ -273,3 +273,37 @@ def test_probes_must_be_configured_and_rounds_whole_intervals():
         with pytest.raises(RuntimeError, match="not finished"):
             svc.submit(SessionRequest("q", n_neurons=8, num_steps=ROUND))
             svc.result("q")
+
+
+def _holding(svc):
+    """Sessions that may update again: live, evicted, or queued to restore."""
+    return sum(1 for s in svc.sessions.values()
+               if s.status in ("running", "evicted") or (s.status == "queued" and s.steps_done))
+
+
+def test_prefix_engines_are_bounded_by_live_and_evicted_sessions():
+    """Traffic with more distinct session sizes than slots: the engine's
+    cache of prefix engines never holds more sizes than there are live and
+    evicted sessions, it is empty after close, and every session still
+    equals its isolated run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pset = ProbeSet([SpikeRasterProbe(), CalciumProbe()], chunk_size=CHUNK)
+        svc = build_service(POOL, num_slots=2, round_steps=ROUND, speedup=400.0, seed=42,
+                            checkpoint_dir=tmp, probes=pset, device="cpu")
+        traffic = default_traffic(seed=3, num_sessions=6, pool_size=POOL, round_steps=ROUND,
+                                  max_rounds_of_work=2)
+        sizes = {req.n_neurons for _, req in traffic} - {POOL}   # POOL: the engine itself
+        assert len(sizes) > svc.num_slots
+        pending = sorted(traffic, key=lambda t: t[0])
+        seen = set()
+        while pending or any(s.status != "finished" for s in svc.sessions.values()):
+            while pending and pending[0][0] <= svc.round_idx:
+                svc.submit(pending.pop(0)[1])
+            svc.run_round()
+            seen |= set(svc.engine._prefixes)
+            assert len(svc.engine._prefixes) <= _holding(svc), svc.round_idx
+        assert seen
+        for _, req in traffic:
+            _assert_session_matches(svc, req)
+        svc.close()
+        assert not svc.engine._prefixes
