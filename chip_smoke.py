@@ -77,14 +77,30 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              functions; gloo ranks p in {2, 4}
              in spawned CPU processes at N = 256 against the card's
              single-device run; the counters of the 2^20 structure at p in
-             {1, 4, 64, 256, 512}.
+             {1, 4, 64, 256, 512};
+15. sweep2d — `DistributedEnsembleEngine` over NCCL on a 1 x 1 layout
+             (`make_sweep_groups(1, 1)`) in phase 10's configuration (K = 4,
+             sigma {600, 750} x inhibitory fraction {0, 0.2}, 300 steps):
+             every replica's records, spikes, edge tables and neuron fields
+             bit for bit against the single-device `EnsembleEngine` run with
+             the same noises and params on the same Morton-sorted positions;
+             then 100 steps with spike, calcium and turnover probes: the
+             records those of the probe-free run, the probe rows and chunk
+             files those of the single-device probed run.  The batched step
+             beside the single-device ensemble's on the same positions and
+             phase 10's, the collectives per step (one gather for the whole
+             replica block, none on the ensemble group), peak memory.
+             Gloo on the card machine's CPU: a 2 x 2 layout at N = 256, K = 4
+             (phase 3's scenario), each replica against the card's
+             single-device run; and the service with mesh= at e = 2 on phase
+             3's traffic, every session against its isolated run on the card.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
 m2m, probes, serve) zeroes the launch counts just before it and reads them
-just after; dist does so around each distributed engine run and each
-emulated per-rank descent, so the single-device runs it compares with are
-not counted.  The script prints the card's
+just after; dist and sweep2d do so around each distributed engine run (and
+dist around each emulated per-rank descent), so the single-device runs they
+compare with are not counted.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -145,16 +161,20 @@ def event_ms(fn, reps: int) -> float:
 def graph_ms(fn, reps: int) -> float:
     """Device time of one fn() (a kernel launch): reps calls captured in a
     CUDA graph and replayed, so the Python wrapper's cost between launches
-    is not timed."""
+    is not timed.  Every call's outputs are kept alive through the capture,
+    so each captured launch writes its own block of the graph's pool: a
+    replayed launch finds no earlier launch's outputs in L2 (with the
+    outputs freed, every launch would write the same addresses)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    kept = []
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
+            kept.append(fn())
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -162,6 +182,7 @@ def graph_ms(fn, reps: int) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph, kept
     return start.elapsed_time(end) / reps
 
 
@@ -955,10 +976,11 @@ def check_batched_msp_update(ens, states, noises, params) -> dict:
     (K*n,) launch against the plain version, bit for bit; then timed
     beside its bound."""
     from repro_torch.core import synapses
+    from repro_torch.core.ensemble import stacked_signs
     from repro_torch.kernels import msp_update as kmsp
     eng = ens.engine
     nrn = states.neurons
-    signs = ens._signs([params.row(r) for r in range(len(noises))])
+    signs = stacked_signs(eng, [params.row(r) for r in range(len(noises))])
     syn_in = synapses.synaptic_input(states.edges, nrn.spiked, signs)
     u = torch.stack([nz.spike_uniform(states.step, eng.rows) for nz in noises])
     args = [t.reshape(-1) for t in (nrn.x, nrn.refrac, nrn.calcium, syn_in, u)]
@@ -1680,6 +1702,242 @@ def phase_dist(seed: int, main: dict) -> dict:
     return out
 
 
+def phase_sweep2d(seed: int, sweep: dict) -> dict:
+    """15. sweep2d: `DistributedEnsembleEngine` (a) over NCCL on a 1 x 1
+    layout at phase 10's configuration against the single-device ensemble,
+    with and without probes; (b) a 2 x 2 gloo layout and the service with
+    mesh= at e = 2 in spawned CPU processes against the card."""
+    import concurrent.futures
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.core import probes
+    from repro_torch.core.distributed import (DistributedEnsembleEngine,
+                                              DistributedPlasticityEngine, sorted_positions)
+    from repro_torch.core.engine import EngineConfig, PlasticityEngine
+    from repro_torch.core.ensemble import EnsembleEngine, replica, replica_noises, stack_states
+    from repro_torch.core.msp import MSPConfig
+    from repro_torch.core.traversal import FMMConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, sweep as msweep
+    from repro_torch.launch.distributed import EnsembleJob, run_ranks, same_run
+    from repro_torch.launch.serve import ServiceJob, build_service, default_traffic
+    steps, probe_steps = 300, 100
+    msp_cfg, fmm_cfg = MSPConfig.calibrated(speedup=100.0), FMMConfig(sigma=600.0)
+    ecfg = EngineConfig(domain=MAIN_DOMAIN)
+    interval = msp_cfg.update_interval
+    pos = main_positions(seed)
+    eng = PlasticityEngine(sorted_positions(pos, ecfg), msp_cfg, fmm_cfg, ecfg)
+    grid = sweep_grid()
+    k = len(grid)
+    params = msweep.pack_params(eng, grid)
+    noises = replica_noises(seed, k, eng.device)
+    ens = EnsembleEngine(eng)
+    st0 = stack_states([mid_growth(eng, seed)] * k)
+    ref_recs = []
+
+    def ref_run(st, num):
+        st, r = ens.simulate(st, num, noises=noises, params=params)
+        ref_recs.append(r)
+        return st, r
+    ops.reset_launches()
+    ref, _, ref_step_s, ref_update_s = timed_run(eng, seed, steps, st0, ref_run)
+    ref_launches = dict(ops.launches)         # what the distributed run must launch
+    ref_recs = type(ref_recs[0])(*(torch.cat(f) for f in zip(*ref_recs)))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep2d_") as tmp:
+        groups = mesh.make_sweep_groups(1, 1, f"file://{tmp}/rendezvous", 0, "cuda")
+        try:
+            data, ensg = mesh.CountingGroup(groups.data), mesh.CountingGroup(groups.ensemble)
+            data.merge(torch.zeros(1, device=eng.device))          # NCCL sets up on first use
+            deng = DistributedPlasticityEngine(pos, data, msp_cfg, fmm_cfg, ecfg)
+            if not np.array_equal(deng.positions_np, eng.positions_np):
+                raise AssertionError("sweep2d: sorted positions differ")
+            dens = DistributedEnsembleEngine(deng, ensg)
+            recs = []
+
+            def run(st, num):
+                st, r = dens.simulate(st, num, noises=noises, params=params)
+                recs.append(r)
+                return st, r
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            data.reset()
+            ensg.reset()
+            ops.reset_launches()
+            t = time.perf_counter()
+            dst, syn, step_s, update_s = timed_run(deng, seed, steps, dens.shard_states(st0),
+                                                   run)
+            run_s = time.perf_counter() - t
+            launches = dict(ops.launches)
+            peak = torch.cuda.max_memory_allocated()
+            run_counts = {g: {c: dict(v) for c, v in grp.counts.items()}
+                          for g, grp in (("data", data), ("ensemble", ensg))}
+            check_launches("sweep2d", launches, dict(ref_launches, msp_update=steps))
+            if any(c["calls"] for c in run_counts["ensemble"].values()):
+                raise AssertionError(f"sweep2d: collectives on the ensemble group "
+                                     f"{run_counts['ensemble']}")
+            whole = dens.gather_states(dst)
+            recs = [torch.cat(f) for f in zip(*recs)]
+            for f, a, b in zip(ref_recs._fields, recs, ref_recs):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"sweep2d: records differ from the single-device "
+                                         f"ensemble in {f}")
+            for r in range(k):
+                check_same_state(f"sweep2d replica {r} (NCCL 1x1) vs single device",
+                                 replica(whole, r), replica(ref, r))
+            # The collectives of an activity chunk and of an update step.
+            data.reset()
+            st2, _ = dens.simulate(dst, interval - 1, noises=noises, params=params)
+            chunk = {c: dict(v) for c, v in data.counts.items()}
+            data.reset()
+            dens.simulate(st2, 1, noises=noises, params=params)
+            upd = {c: dict(v) for c, v in data.counts.items()}
+            # A simulate call's first step also gathers the spikes and merges
+            # the synapse count anew: one more of each per chunk.
+            per_step = {c: (v["calls"] - (c in ("gather", "merge"))) / (interval - 1)
+                        for c, v in chunk.items()}
+            bytes_step = {c: round(v["bytes"] / (interval - 1)) for c, v in chunk.items()}
+            del st2
+            log(f"[sweep2d] NCCL 1x1 layout, K={k} x n={eng.n}, grid {grid}: every replica's "
+                f"records, spikes, edge tables and neuron fields bit for bit equal to the "
+                f"single-device EnsembleEngine run (same noises and params, sorted positions);"
+                f" synapses after updates {syn[interval - 1::interval].tolist()}; launches "
+                f"{launches}; {run_s:.2f} s")
+            log(f"[sweep2d] batched step {np.mean(step_s) * 1e3:.3f} ms (per chunk "
+                f"{[round(x * 1e3, 3) for x in step_s]}) against the single-device "
+                f"ensemble's {np.mean(ref_step_s) * 1e3:.3f} ms on the same sorted positions "
+                f"and phase 10's {sweep['step_ms']:.3f} ms; updates "
+                f"{[round(x, 4) for x in update_s]} s (single device "
+                f"{[round(x, 4) for x in ref_update_s]} s, phase 10: "
+                f"{[round(x, 4) for x in sweep['update_s']]} s); peak memory "
+                f"{peak / 2**30:.2f} GiB (phase 10: {sweep['peak_gib']:.2f} GiB)")
+            log(f"[sweep2d]   data-group collectives per activity step: calls {per_step}, "
+                f"bytes {bytes_step}; in the update step {upd}; on the ensemble group during "
+                f"the run: none")
+            if per_step["gather"] != 1 or per_step["merge"] != 1:
+                raise AssertionError(f"sweep2d: {per_step} collectives per activity step, "
+                                     f"expected one gather and one merge for the block")
+
+            # Probes: 100 steps from the start state.
+            half = MAIN_DOMAIN / 2
+            spos = eng.positions_np
+            region = ((spos[:, 0] > half) + 2 * (spos[:, 1] > half)
+                      + 4 * (spos[:, 2] > half)).astype(np.int64)
+            pset = probes.ProbeSet((probes.SpikeRasterProbe(), probes.CalciumProbe(),
+                                    probes.TurnoverProbe(region, 8)), chunk_size=probe_steps)
+            ops.reset_launches()
+            t = time.perf_counter()
+            pst, precs, pps = dens.simulate(dens.shard_states(st0), probe_steps, noises=noises,
+                                            params=params, probes=pset)
+            torch.cuda.synchronize()
+            probed_s = time.perf_counter() - t
+            probe_launches = dict(ops.launches)
+            for f, a, b in zip(precs._fields, precs, recs):
+                if not torch.equal(a, b[:probe_steps]):
+                    raise AssertionError(f"sweep2d: the probed run's {f} differs from the "
+                                         f"probe-free run")
+            sst, srecs, sps = ens.simulate(st0, probe_steps, noises=noises, params=params,
+                                           probes=pset)
+            check_same_state("sweep2d probed vs single-device probed", dens.gather_states(pst),
+                             sst)
+            for name, buf in sps.buffers.items():
+                if not torch.equal(buf, pps.buffers[name]):
+                    raise AssertionError(f"sweep2d: probe buffer {name} differs")
+            del pst, sst
+            dirs = [os.path.join(tmp, d) for d in ("dist", "single")]
+            probes.ProbeWriter(dirs[0]).flush(pset, pps, group=data)
+            probes.ProbeWriter(dirs[1]).flush(pset, sps)
+            del pps, sps
+            for r in range(k):
+                for name in ("spikes", "calcium", "turnover"):
+                    a, b = (probes.read_trajectory(d, name, replica=r) for d in dirs)
+                    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                        raise AssertionError(f"sweep2d: chunk file of replica {r} differs "
+                                             f"in {name}")
+            files = sum(os.path.getsize(os.path.join(dirs[0], f)) for f in os.listdir(dirs[0]))
+            log(f"[sweep2d] {probe_steps} steps with spike, calcium and turnover probes: "
+                f"records == the probe-free run's, state, probe rows and chunk files "
+                f"({files / 2**30:.3f} GiB) == the single-device probed run's; "
+                f"{probed_s:.2f} s; launches {probe_launches}")
+        finally:
+            dist.destroy_process_group()
+    del dens, deng, dst, whole, ref, ens, st0
+    torch.cuda.empty_cache()
+    out.update(launches=launches, probe_launches=probe_launches,
+               step_ms=float(np.mean(step_s)) * 1e3, update_s=update_s, peak_gib=peak / 2**30,
+               ref_step_ms=float(np.mean(ref_step_s)) * 1e3, ref_update_s=ref_update_s,
+               per_step=per_step, bytes_step=bytes_step)
+
+    # (b) gloo on the CPU: a 2 x 2 layout (phase 3's scenario) and the service
+    # with mesh= at e = 2, both against the card.
+    small_pos = np.random.default_rng(seed).uniform(0, 1000.0, (256, 3)).astype(np.float32)
+    scfg, sfmm = EngineConfig(), FMMConfig(c1=8, c2=8, sigma=600.0)
+    g = np.random.default_rng(seed + 1)
+    arrays = dict(x=np.full(256, msp_cfg.x0, np.float32), refrac=np.zeros(256, np.int32),
+                  spiked=np.zeros(256, bool), calcium=g.uniform(0.4, 0.7, 256).astype(np.float32),
+                  ax_elems=g.uniform(0, 6, 256).astype(np.float32),
+                  den_elems=g.uniform(0, 6, 256).astype(np.float32),
+                  src=np.zeros(256 * 64, np.int32), dst=np.zeros(256 * 64, np.int32),
+                  valid=np.zeros(256 * 64, bool), step=np.int32(0), dropped=np.int32(0))
+    batched = {key: np.stack([v] * k) for key, v in arrays.items()}
+    seng = PlasticityEngine(sorted_positions(small_pos, scfg), msp_cfg, sfmm, scfg)
+    sparams = msweep.pack_params(seng, grid)
+    seeds = np.random.SeedSequence(seed).generate_state(k, np.uint32)
+    sst, srecs = EnsembleEngine(seng).simulate(
+        convert.from_jax_state(batched, "cuda"), steps, params=sparams,
+        noises=[CpuDraws(int(x), seng.device) for x in seeds])
+    traffic = default_traffic(seed=6, num_sessions=8, pool_size=256, round_steps=100,
+                              max_rounds_of_work=3)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckpt:
+        pset = probes.ProbeSet([probes.SpikeRasterProbe(), probes.CalciumProbe()],
+                               chunk_size=300)
+        job = EnsembleJob(small_pos, msp_cfg, sfmm, scfg, {}, steps, k, seed=seed,
+                          params=convert.params_to_numpy(sparams), state=batched)
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            f2d = pool.submit(run_ranks, 4, [job], "cpu", 240.0, 60.0, 2)
+            fsvc = pool.submit(run_ranks, 2, [ServiceJob(256, 4, 100, traffic, ckpt,
+                                                         probes=pset)], "cpu", 240.0, 60.0, 2)
+            (res2d,), (svc_res,) = f2d.result(), fsvc.result()
+    gloo_s = time.perf_counter() - t
+    bad = same_run(res2d, sst, srecs)
+    if bad:
+        raise AssertionError(f"sweep2d gloo 2x2: differs from the card's single-device "
+                             f"ensemble in {bad}")
+    if any(c["calls"] for c in res2d["counts"]["ensemble"].values()):
+        raise AssertionError("sweep2d gloo 2x2: collectives on the ensemble group")
+    if any(c["calls"] for c in svc_res["rounds_counts"].values()):
+        raise AssertionError("sweep2d served e=2: collectives during the rounds")
+    card = build_service(256, num_slots=4, round_steps=100, speedup=400.0, seed=42,
+                         checkpoint_dir="unused")
+    for _, req in traffic:
+        iso = card.isolated_engine(req.n_neurons)
+        ist, irecs, ips = iso.simulate(iso.init_state(), req.num_steps, seed=req.seed,
+                                       probes=pset)
+        got = svc_res["results"][req.session_id]
+        pairs = [*((f, got["records"][f], v) for f, v in irecs._asdict().items()),
+                 *((f, got["state"][f], v) for part in (ist.neurons, ist.edges)
+                   for f, v in part._asdict().items())]
+        if req.record_probes:
+            pairs += [(name, got["probe_rows"][name][:, :req.n_neurons],
+                       ips.buffers[name][:req.num_steps]) for name in ("spikes", "calcium")]
+        for f, a, b in pairs:
+            a = a[..., :b.shape[-1]] if f in ("x", "refrac", "spiked", "calcium", "ax_elems",
+                                              "den_elems", "src", "dst", "valid") else a
+            if not np.array_equal(a, b.cpu().numpy()):
+                raise AssertionError(f"sweep2d served e=2 {req.session_id}: {f} differs from "
+                                     f"its isolated run on the card")
+    card.close()
+    restores = sum(e.startswith("restored") for e in svc_res["events"])
+    log(f"[sweep2d] gloo 2x2 (spawned CPU processes), N=256, K={k}, 300 steps: every replica "
+        f"bit for bit equal to the card's single-device ensemble (synapses "
+        f"{srecs.num_synapses[-1].tolist()}); served e=2, 4 slots, {len(traffic)} sessions "
+        f"({restores} restores): every session == its isolated run on the card (records, "
+        f"state, probe rows), no collective during the rounds; {gloo_s:.1f} s")
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -1690,7 +1948,7 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes", "serve", "dist")
+          "sweep", "m2m", "probes", "serve", "dist", "sweep2d")
 
 
 def main() -> int:
@@ -1742,6 +2000,8 @@ def main() -> int:
             run[name] = phase_serve(args.seed, run["sweep"])
         elif name == "dist":
             run[name] = phase_dist(args.seed, run["main"])
+        elif name == "sweep2d":
+            run[name] = phase_sweep2d(args.seed, run["sweep"])
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -1764,7 +2024,11 @@ def main() -> int:
     for k in kernels[:2]:
         k["serve_launches"] = run["serve"]["launches"][k["name"]]
         k["dist_launches"] = run["dist"]["launches"][k["name"]]
+        k["sweep2d_launches"] = run["sweep2d"]["launches"][k["name"]]
     kernels[1]["dist_emulated_launches"] = run["dist"]["emulated_launches"]["m2l_separable"]
+    for k in kernels:
+        log(f"[kernels] {k['name']}: {k['ms']:.4f} ms against a {k['bound_ms']:.4f} ms bound "
+            f"({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -42,10 +42,18 @@ and control flow branches only on replicated values, so a run equals
 `PlasticityEngine.simulate` on the Morton-sorted positions bit for bit, for
 any rank count: records, spikes and edge tables.
 
+Probes ride along in `simulate`: a `row_sharded` probe records the rank's
+own rows, a `needs_merge` one (turnover) its partial summed over the group
+(`ProbeSet.record`'s merge), so the recorded rows are a single-device
+run's.
+
+`DistributedEnsembleEngine` (port of the reference's) runs K replicas on a
+2-D layout of e x d ranks (`launch.mesh.make_sweep_groups`): an ensemble
+coordinate holds a block of K/e replicas, and within it each replica's
+neurons and edges are cut over the data group as above.  Replicas never
+communicate, and no collective of the step names the ensemble axis.
+
 Only methods "fmm" and "barnes_hut" and the segsum pyramid are allowed.
-The ensemble over a 2-D layout, `mesh=` on the ensemble and the service,
-and probes in `simulate` are not ported yet (ROADMAP.md Queue 1 item 11
-(d)).
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ from torch.profiler import record_function
 from repro_torch.core import barnes_hut, msp, octree, synapses, traversal
 from repro_torch.core import multi_index as mi
 from repro_torch.core import noise as _noise
+from repro_torch.core import ensemble as _ensemble
 from repro_torch.core.engine import (EngineConfig, KernelParams, PlasticityEngine, SimState,
                                      StepRecord, records, stack_records)
 from repro_torch.core.msp import MSPConfig, NeuronState
@@ -413,49 +422,298 @@ class DistributedPlasticityEngine(PlasticityEngine):
         is a multiple of `update_interval`)."""
         if n_active is not None:
             raise ValueError("the distributed engine has no padded state (n_active)")
-        return self._step_gathered(state, noise, params, self._runtime_sign(params),
-                                   do_update)[:2]
+        states, rec, _, _ = self._step_block(_ensemble.stack_states([state]), [noise], [params],
+                                             _block_signs(self._runtime_sign(params)), do_update)
+        return _ensemble.replica(states, 0), StepRecord(*(f[0] for f in rec))
 
-    def _step_gathered(self, state, noise, params, sign, do_update=None, spiked_g=None,
-                       nsyn=None):
-        """One step; also returns (the step's gathered spikes, the synapse
-        count), which the next step reuses: the spikes are its presynaptic
-        spikes, and the count changes only in a connectivity update.
+    def _step_block(self, states: SimState, noises, rows, signs, do_update=None,
+                    spiked_g=None, nsyn=None):
+        """One step of a (kb,)-leading block of replicas of this rank's part
+        (a lone run is a block of one): one merge of the (kb, n)
+        synaptic-input partials and one gather of the block's calcium and
+        spikes over the group, one `msp_update` launch over the kb x n/p
+        rows, and the connectivity update replica by replica.  Returns
+        (states, records, the gathered (kb, n) spikes, the (kb,) synapse
+        counts); the next step reuses the last two: the spikes are its
+        presynaptic spikes, and the count changes only in an update.
         spiked_g, nsyn: the previous step's, or None to compute them."""
         g = self.group
         lo, hi = self.row_range
-        s = state.step
+        s = states.step
         with record_function("step.synaptic_input"):
             if spiked_g is None:
-                spiked_g = g.gather(state.neurons.spiked)
-            syn_in = g.merge(synapses.synaptic_input(state.edges, spiked_g, sign))[lo:hi]
-        u = _noise.sliced(noise, lambda r: noise.spike_uniform(s, r), self.rows, lo, hi)
+                spiked_g = rules.gather_dim(g, states.neurons.spiked, 1)
+            syn_in = g.merge(synapses.synaptic_input(states.edges, spiked_g, signs))[:, lo:hi]
+        u = torch.stack([_noise.sliced(nz, lambda r: nz.spike_uniform(s, r), self.rows, lo, hi)
+                         for nz in noises])
         with record_function("step.neurons"):
-            neurons = msp.step_neurons(state.neurons, syn_in, self.msp_cfg, u=u)
-        state = state._replace(neurons=neurons, step=s + 1)
+            shape = states.neurons.x.shape
+            flat = msp.step_neurons(NeuronState(*(t.reshape(-1) for t in states.neurons)),
+                                    syn_in.reshape(-1), self.msp_cfg, u=u.reshape(-1))
+            neurons = NeuronState(*(t.reshape(shape) for t in flat))
+        states = states._replace(neurons=neurons, step=s + 1)
         if do_update is None:
-            do_update = state.step % self.msp_cfg.update_interval == 0
+            do_update = states.step % self.msp_cfg.update_interval == 0
         if do_update:
-            state = self.connectivity_update(state, noise, s, params)
-        # Calcium and spikes in one gather (a spike is an exact 0.0 or 1.0).
-        obs = g.gather(torch.stack([neurons.calcium, neurons.spiked.to(torch.float32)], dim=1))
-        spiked_g = obs[:, 1] > 0
+            states = _ensemble.stack_states([
+                self.connectivity_update(_ensemble.replica(states, k), nz, s, rows[k])
+                for k, nz in enumerate(noises)])
+        # The block's calcium and spikes in one gather (a spike is an exact 0.0 or 1.0).
+        obs = rules.gather_dim(g, torch.stack([neurons.calcium,
+                                               neurons.spiked.to(torch.float32)], dim=-1), 1)
+        spiked_g = obs[..., 1] > 0
         if nsyn is None or do_update:
-            nsyn = g.merge(state.edges.valid.sum(dtype=torch.int32))
-        return state, records(obs[:, 0].contiguous(), spiked_g, nsyn), spiked_g, nsyn
+            nsyn = g.merge(states.edges.valid.sum(dim=-1, dtype=torch.int32))
+        return states, records(obs[..., 0].contiguous(), spiked_g, nsyn), spiked_g, nsyn
 
-    def simulate(self, state: SimState, num_steps: int, seed: int = 0, noise=None,
-                 params: Optional[KernelParams] = None):
-        """Run `num_steps` steps of this rank's part (collective); returns
-        (state, records stacked per step), the records replicated.  noise:
-        the draw source (default: `noise.for_config(rng, seed)`); every rank
-        must use the same one."""
-        if noise is None:
-            noise = _noise.for_config(self.engine_cfg.rng, seed, self.device)
-        sign = self._runtime_sign(params)
+    def _run_block(self, states: SimState, num_steps: int, noises, rows, signs, probes=None,
+                   probe_states=None):
+        """`num_steps` steps of a (kb,)-leading block (collective); returns
+        (states, (num_steps, kb) records, probe states).  Probes record
+        the rank's rows; a turnover partial is merged over the group on
+        update steps (between updates the edge table is unchanged: every
+        rank's partial is zero, and so is their sum)."""
+        interval = self.msp_cfg.update_interval
         recs, spiked_g, nsyn = [], None, None
         for _ in range(num_steps):
-            state, rec, spiked_g, nsyn = self._step_gathered(state, noise, params, sign,
-                                                             spiked_g=spiked_g, nsyn=nsyn)
+            prev = states
+            states, rec, spiked_g, nsyn = self._step_block(states, noises, rows, signs,
+                                                           spiked_g=spiked_g, nsyn=nsyn)
+            if probes is not None:
+                merge = self.group.merge if states.step % interval == 0 else None
+                probe_states = probes.record(probe_states, prev, states, rec, merge=merge)
             recs.append(rec)
-        return state, stack_records(recs, self.device)
+        return states, stack_records(recs, self.device), probe_states
+
+    def simulate(self, state: SimState, num_steps: int, seed: int = 0, noise=None,
+                 params: Optional[KernelParams] = None, probes=None, probe_state=None):
+        """Run `num_steps` steps of this rank's part (collective); returns
+        (state, records stacked per step), the records replicated, and the
+        probe state as a third element when `probes` (a
+        `core.probes.ProbeSet`) ride along.  noise: the draw source
+        (default: `noise.for_config(rng, seed)`); every rank must use the
+        same one.  probe_state: this rank's part of the carry (None = a
+        fresh one at the state's step): its row-probe buffers hold the
+        rank's n/p rows (`ProbeWriter.flush(group=)` writes whole chunks).
+        The run is `_run_block` over a block of one replica."""
+        if noise is None:
+            noise = _noise.for_config(self.engine_cfg.rng, seed, self.device)
+        if probes is not None and probe_state is None:
+            probe_state = probes.init(self.n // self.num_shards, start_step=state.step,
+                                      device=self.device)
+        lead = lambda x: x[None]
+        states, recs, probe_states = self._run_block(
+            _ensemble.stack_states([state]), num_steps, [noise], [params],
+            _block_signs(self._runtime_sign(params)), probes,
+            rules.tree_map(lead, probe_state))
+        state = _ensemble.replica(states, 0)
+        recs = StepRecord(*(f[:, 0] for f in recs))
+        if probes is None:
+            return state, recs
+        return state, recs, rules.tree_map(lambda x: x[0, ...], probe_states)
+
+
+def _block_signs(sign: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A lone run's (n,) sign vector as a block of one (None stays None)."""
+    return None if sign is None else sign[None]
+
+
+class DistributedEnsembleEngine:
+    """K replicas x data-sharded neurons on a 2-D layout of e x d ranks (port
+    of the reference's `DistributedEnsembleEngine`).
+
+    engine:   a `DistributedPlasticityEngine` on this rank's data group (its
+              switches ride along unchanged).
+    ensemble: this rank's ensemble group (`SweepGroups.ensemble`; None = a
+              single block): its rank is the ensemble coordinate c, and this
+              rank holds replicas [c*K/e, (c+1)*K/e).  It carries only the
+              gathers of results after a run (`gather=`, `gather_states`).
+
+    Each step is the engine's own step over the block of K/e replicas
+    (`DistributedPlasticityEngine._step_block`): one merge of the (K/e, n)
+    synaptic-input partials and one gather of the block's calcium and
+    spikes over the data group (not K/e of each), one `msp_update` launch
+    over the K/e x n/d rows, the single-device records of every replica,
+    and the connectivity update replica by replica.  Every replica equals
+    its single-device run on the Morton-sorted positions bit for bit."""
+
+    def __init__(self, engine: DistributedPlasticityEngine, ensemble=None,
+                 ensemble_axis: str = "ensemble"):
+        name = ensemble_axis if ensemble is None else ensemble.name
+        if name != ensemble_axis:
+            raise ValueError(f"the layout has no {ensemble_axis!r} axis: the ensemble "
+                             f"group is named {name!r}")
+        if engine.group.name == ensemble_axis:
+            raise ValueError("ensemble and data axes must differ")
+        self.engine = engine
+        self.ensemble = ensemble
+
+    @property
+    def blocks(self) -> int:
+        return 1 if self.ensemble is None else self.ensemble.size
+
+    # -- state --------------------------------------------------------------------
+    def init_states(self, num_replicas: int) -> SimState:
+        """This rank's part of a fresh K-replica state: its block of
+        replicas, each its rows and slot range."""
+        lo, hi = _ensemble.replica_block(self.ensemble, num_replicas)
+        return _ensemble.stack_states([self.engine.init_state()] * (hi - lo))
+
+    def default_params(self, num_replicas: int) -> KernelParams:
+        """(K,) params equal to the engine's static configs (the identity sweep)."""
+        base = KernelParams.from_configs(self.engine.fmm_cfg, self.engine.engine_cfg)
+        return KernelParams(*(np.full((num_replicas,), v, np.float32) for v in base))
+
+    def _coords(self) -> dict:
+        eng = self.engine
+        return dict(rank=eng.rank, size=eng.num_shards, ensemble=self.blocks,
+                    coord=0 if self.ensemble is None else self.ensemble.rank)
+
+    def shard_states(self, states: SimState) -> SimState:
+        """This rank's part of a whole (K,)-leading state."""
+        _ensemble.replica_block(self.ensemble, states.dropped.shape[0])
+        return rules.shard_tree(rules.ensemble_sharded_spec(states), states, **self._coords())
+
+    def gather_states(self, states: SimState) -> SimState:
+        """The whole (K,)-leading state from every rank's part (collective
+        over both groups)."""
+        return rules.unshard_tree(rules.ensemble_sharded_spec(states), states,
+                                  self.engine.group, self.ensemble)
+
+    def gather_probe_states(self, probes, probe_states):
+        """The whole (K,)-leading probe state from every rank's part
+        (collective over both groups)."""
+        return rules.unshard_tree(rules.probe_state_spec(probes, ensemble=True), probe_states,
+                                  self.engine.group, self.ensemble)
+
+    def whole_template(self, num_replicas: int, probes=None) -> tuple:
+        """Zeros shaped as the whole (K,)-leading state (and probe state) on
+        the host: the template a checkpoint restores into."""
+        eng, cpu = self.engine, torch.device("cpu")
+        st = _ensemble.stack_states([SimState(
+            neurons=msp.init_neurons(eng.n, eng.msp_cfg, cpu),
+            edges=synapses.empty(eng.edge_capacity, cpu), step=0,
+            dropped=torch.zeros((), dtype=torch.int64))] * num_replicas)
+        if probes is None:
+            return (st,)
+        return st, probes.init(eng.n, batch=num_replicas, device=cpu)
+
+    def _specs(self, states: SimState, probes=None) -> tuple:
+        specs = (rules.ensemble_sharded_spec(states),)
+        if probes is not None:
+            specs += (rules.probe_state_spec(probes, ensemble=True),)
+        return specs
+
+    def save_checkpoint(self, manager, states: SimState, probes=None, probe_states=None) -> None:
+        """Save the whole (K,)-leading state (and probe state) at its step,
+        through `manager` (a `checkpoint.manager.CheckpointManager`); a
+        single-device ensemble restores it as its own.  Every rank's part
+        travels to the layout's rank 0 on the host, one part at a time
+        (`rules.gather_tree_to_host`), and rank 0 writes: no card holds the
+        whole tree.  Collective: no rank returns before the checkpoint is
+        published."""
+        tree = (states,) if probes is None else (states, probe_states)
+        whole = rules.gather_tree_to_host(self._specs(states, probes), tree, self.engine.group,
+                                          self.ensemble)
+        if whole is not None:
+            manager.save(whole, states.step)
+            manager.wait()
+        self.engine.group.merge(torch.zeros(1, device=self.engine.device))
+        if self.ensemble is not None:
+            self.ensemble.gather_objects(None)
+
+    def restore_checkpoint(self, manager, num_replicas: int, probes=None,
+                           step: Optional[int] = None) -> tuple:
+        """This rank's part of a whole (K,)-leading checkpoint (one this
+        engine saved, or a single-device ensemble's (state[, probe state])
+        tree): (states,) or (states, probe_states).  The checkpoint is read
+        on the host, and only this rank's part is copied to the engine's
+        device."""
+        tree, _ = manager.restore(self.whole_template(num_replicas, probes), step)
+        part = rules.shard_tree(self._specs(tree[0], probes), tree, **self._coords())
+        dev = self.engine.device
+        return rules.tree_map(
+            lambda x: x.to(dev, copy=True) if isinstance(x, torch.Tensor) else x, part)
+
+    # -- the run ------------------------------------------------------------------
+    def simulate(self, states: SimState, num_steps: int, seed: int = 0, noises=None,
+                 params: Optional[KernelParams] = None, probes=None, probe_states=None,
+                 gather: bool = False):
+        """Run the block's replicas `num_steps` steps (collective).
+
+        states: this rank's part (`init_states`, `shard_states`).  noises:
+        one draw source per replica, all K (default: `replica_noises(seed,
+        K)` of the engine's rng, so a replica draws the same on any layout);
+        every rank must use the same ones.  params: (K,) columns (None = the
+        static configs).  probes: a `core.probes.ProbeSet`; probe_states this
+        rank's part of its (K,)-leading carry (None = fresh): row probes
+        record the rank's rows of its replicas, turnover partials are
+        merged over the data group on update steps.  gather: return all K
+        replicas' records (one gather over the ensemble group after the
+        run) instead of the block's.
+        Returns (states, records with (num_steps, K/e or K) fields), and the
+        probe states as a third element when probes ride along."""
+        eng = self.engine
+        kb = states.dropped.shape[0]
+        k = kb * self.blocks
+        lo, hi = _ensemble.replica_block(self.ensemble, k)
+        if noises is None:
+            noises = _ensemble.replica_noises(seed, k, eng.device, eng.engine_cfg.rng)
+        if len(noises) != k:
+            raise ValueError(f"{len(noises)} noise objects for {k} replicas")
+        noises = noises[lo:hi]
+        rows = [None] * kb if params is None else [params.row(r) for r in range(lo, hi)]
+        signs = _ensemble.stacked_signs(eng, rows)
+        if probes is not None and probe_states is None:
+            probe_states = probes.init(eng.n // eng.num_shards, start_step=states.step,
+                                       batch=kb, device=eng.device)
+        states, recs, probe_states = eng._run_block(states, num_steps, noises, rows, signs,
+                                                    probes, probe_states)
+        if gather:
+            recs = _ensemble.gather_records(self.ensemble, recs)
+        if probes is None:
+            return states, recs
+        return states, recs, probe_states
+
+
+# -- the contract auditor's registry (`repro_torch.audit`) ------------------------
+_SYNAPTIC_INPUT = ("repro_torch.core.synapses.synaptic_input",
+                   "adds +1/-1 per spiking partner: integers, exact in float32 below 2^24")
+AUDIT = {
+    "entry_points": {
+        "distributed.simulate": {
+            "combos": (
+                {"method": "fmm", "find_phase": "sharded", "pyramid_exchange": "gathered"},
+                {"method": "fmm", "find_phase": "sharded", "pyramid_exchange": "routed",
+                 "routed_shared_levels": 0},
+                {"method": "fmm", "find_phase": "replicated"},
+                {"method": "fmm", "pyramid_partials": "masked"},
+                {"method": "barnes_hut", "find_phase": "sharded"},
+                {"method": "barnes_hut", "find_phase": "replicated"},
+            ),
+            "rules": {
+                "R1": {},
+                "R2": {"allowed_groups": ("data",)},
+                "R3": {},            # min_size: the edge table, from the run
+                "R4": {"allowlist": (_SYNAPTIC_INPUT,)},
+            },
+        },
+        # The sharded find phase's rare edge-table gather, driven by an
+        # excess on both sides (tests/test_probes.py's forced deletion).
+        "distributed.forced_deletion": {
+            "rules": {
+                "R2": {"allowed_groups": ("data",)},
+                "R3": {},
+                "R4": {"allowlist": (_SYNAPTIC_INPUT,)},
+            },
+        },
+        "distributed_ensemble.simulate": {
+            "rules": {
+                "R1": {},
+                "R2": {"allowed_groups": ("data",)},
+                "R3": {},
+                "R4": {"allowlist": (_SYNAPTIC_INPUT,)},
+            },
+        },
+    },
+}

@@ -146,7 +146,7 @@ def records(calcium: torch.Tensor, spiked: torch.Tensor, num_synapses: torch.Ten
         n = calcium.shape[-1]
         guard = None
         if n_active is None:
-            inv = float(np.float32(1.0) / np.float32(n))
+            inv = float(np.float32(1.0) / np.float32(n))       # audit: ok (host math)
         else:
             n_act = np.asarray(n_active, np.int64)
             # An empty slot (0 rows) gets 1: its records are discarded.
@@ -254,7 +254,7 @@ class PlasticityEngine:
         return dataclasses.replace(
             self.fmm_cfg, sigma=np.float32(params.sigma), c1=np.float32(params.c1),
             c2=np.float32(params.c2),
-            guard_delta=guard if guard is not None else float(self.fmm_cfg.delta))
+            guard_delta=guard if guard is not None else float(self.fmm_cfg.delta))  # audit: ok
 
     def _runtime_sign(self, params: Optional[KernelParams],
                       n_active: Optional[int] = None) -> Optional[torch.Tensor]:
@@ -423,3 +423,25 @@ class PlasticityEngine:
         if probes is None:
             return state, recs
         return state, recs, probe_state
+
+
+# -- the contract auditor's registry (`repro_torch.audit`) ------------------------
+AUDIT = {
+    "entry_points": {
+        "engine.simulate": {
+            "combos": ({"method": "fmm"}, {"method": "barnes_hut"}, {"method": "direct"},
+                       {"method": "fmm", "pyramid": "m2m"}),
+            "rules": {
+                "R1": {},
+                "R2": {"allowed_groups": ()},
+                "R4": {"allowlist": (
+                    ("repro_torch.core.synapses.synaptic_input",
+                     "adds +1/-1 per spiking partner: integers, exact in float32 below 2^24"),
+                    ("repro_torch.core.octree.build_pyramid_m2m",
+                     "the m2m leaf level's torch.sum: a single-device path that no "
+                     "distributed path builds (ROADMAP.md Queue 3)"),
+                )},
+            },
+        },
+    },
+}

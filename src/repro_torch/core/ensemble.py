@@ -17,14 +17,22 @@ tables, one `msp_update` launch over K*n neurons and per-replica `det_sum`
 records.  Every operation there is elementwise or an exact integer sum, so
 each replica's rows are bit for bit its sequential run's.  The
 connectivity update runs replica by replica through the engine's own
-(ROADMAP.md Queue 1 item 8 lists a batched one as later work).
+(ROADMAP.md Queue 2, N4, lists a batched one as later work).
 
 The serving hooks of the reference's `scan_replicas` (`extras`,
 `fold_by_replica_step`, `do_update_fn`) are `step_slots`: K served slots,
 each at its own step counter with its own session's counter draws, its own
 active row count, and a hold for empty slots and sessions frozen at their
-target step.  A device mesh over replicas belongs to ROADMAP.md Queue 1
-item 11.
+target step.
+
+With `mesh=` (an ensemble group, `launch.mesh.make_ensemble_group`) each
+of e ranks holds a block of K/e replicas and steps it with no collective:
+replicas never communicate.  Noises and params stay global (K of each),
+states are the rank's block (`init_states`, `shard_states`); the records
+come back (T, K) in replica order only when the caller asks (`gather=`),
+in one gather after the run, and `gather_states` puts the blocks together.
+`DistributedEnsembleEngine` (core/distributed.py) cuts each replica's
+neurons over a data group too.
 """
 from __future__ import annotations
 
@@ -35,10 +43,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import noise as _noise, streams
-from repro_torch.core.engine import (KernelParams, PlasticityEngine, SimState,
+from repro_torch.core.engine import (KernelParams, PlasticityEngine, SimState, StepRecord,
                                      activity_step, stack_records, step_records)
 from repro_torch.core.msp import NeuronState
 from repro_torch.core.synapses import SynapseState
+from repro_torch.sharding import rules
 
 
 def replica_noises(seed: int, num_replicas: int, device, rng: str = "batched") -> List:
@@ -66,6 +75,45 @@ def stack_states(parts: Sequence[SimState], per_replica_step: bool = False) -> S
     step = np.array([p.step for p in parts], np.int64) if per_replica_step else parts[0].step
     return SimState(neurons=NeuronState(*stack("neurons")), edges=SynapseState(*stack("edges")),
                     step=step, dropped=torch.stack([p.dropped for p in parts]))
+
+
+def stacked_signs(engine: PlasticityEngine, rows) -> Optional[torch.Tensor]:
+    """(K, n) sign vectors of K replicas' `KernelParams` rows (or None each),
+    or None when every replica is excitatory."""
+    signs = [engine._runtime_sign(r) for r in rows]
+    if all(s is None for s in signs):
+        return None
+    ones = torch.ones((engine.n,), dtype=torch.float32, device=engine.device)
+    return torch.stack([ones if s is None else s for s in signs])
+
+
+def check_ensemble_group(group) -> None:
+    """Raise unless `group` is None or a group of the ensemble axis."""
+    name = getattr(group, "name", None)
+    if group is not None and name != rules.ENSEMBLE:
+        raise ValueError(f"mesh has no {rules.ENSEMBLE!r} axis: got {type(group).__name__} "
+                         f"named {name!r}")
+
+
+def replica_block(group, num_replicas: int) -> tuple:
+    """[lo, hi) of the replicas that ensemble coordinate `group.rank` holds
+    (group None: all of them)."""
+    if group is None:
+        return 0, num_replicas
+    if num_replicas % group.size:
+        raise ValueError(f"the ensemble axis size {group.size} must divide the replica "
+                         f"count {num_replicas}")
+    return rules.rows_of(group.rank, group.size, num_replicas)
+
+
+def gather_records(group, recs: StepRecord) -> StepRecord:
+    """(T, K/e) records of every ensemble coordinate -> (T, K) in replica
+    order, in one gather (the float fields travel as their int32 bits)."""
+    if group is None:
+        return recs
+    bits = torch.stack([f.view(torch.int32) for f in recs], dim=-1)      # (T, k, 4)
+    got = rules.gather_dim(group, bits, 1)
+    return StepRecord(*(got[..., i].contiguous().view(f.dtype) for i, f in enumerate(recs)))
 
 
 def step_slots(engine: PlasticityEngine, states: SimState, noises: Sequence,
@@ -117,35 +165,46 @@ def step_slots(engine: PlasticityEngine, states: SimState, noises: Sequence,
 
 
 class EnsembleEngine:
-    """Runs K replicas of one `PlasticityEngine` as a batch."""
+    """Runs K replicas of one `PlasticityEngine` as a batch.
+
+    mesh: None (every replica here), or an ensemble group of e ranks
+    (`launch.mesh.make_ensemble_group`): this rank holds replicas
+    [c*K/e, (c+1)*K/e) of coordinate c = mesh.rank, and K % e == 0."""
 
     def __init__(self, engine: PlasticityEngine, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a replica mesh (mesh=) is not ported yet (ROADMAP.md Queue 1 item 11)")
+        check_ensemble_group(mesh)
         self.engine = engine
+        self.mesh = mesh
 
     def init_states(self, num_replicas: int) -> SimState:
-        """A fresh (K,)-leading state: the engine's initial state per replica."""
-        return stack_states([self.engine.init_state()] * num_replicas)
+        """A fresh state of this rank's block of K replicas: the engine's
+        initial state per replica."""
+        lo, hi = replica_block(self.mesh, num_replicas)
+        return stack_states([self.engine.init_state()] * (hi - lo))
+
+    def shard_states(self, states: SimState) -> SimState:
+        """This rank's block of a whole (K,)-leading state."""
+        k = states.dropped.shape[0]
+        replica_block(self.mesh, k)
+        size, coord = (1, 0) if self.mesh is None else (self.mesh.size, self.mesh.rank)
+        return rules.shard_tree(rules.ensemble_spec(states), states, coord=coord,
+                                ensemble=size)
+
+    def gather_states(self, states: SimState) -> SimState:
+        """The whole (K,)-leading state from every rank's block (collective
+        over the ensemble group, after a run)."""
+        return rules.unshard_tree(rules.ensemble_spec(states), states, ensemble_group=self.mesh)
 
     def default_params(self, num_replicas: int) -> KernelParams:
         """(K,) params equal to the engine's static configs (the identity sweep)."""
         base = KernelParams.from_configs(self.engine.fmm_cfg, self.engine.engine_cfg)
         return KernelParams(*(np.full((num_replicas,), v, np.float32) for v in base))
 
-    def _signs(self, rows) -> Optional[torch.Tensor]:
-        signs = [self.engine._runtime_sign(r) for r in rows]
-        if all(s is None for s in signs):
-            return None
-        ones = torch.ones((self.engine.n,), dtype=torch.float32, device=self.engine.device)
-        return torch.stack([ones if s is None else s for s in signs])
-
     def _step(self, states: SimState, noises, rows, signs) -> tuple:
         """One batched activity step, then every replica's connectivity
         update on the steps the shared counter schedules.  rows: each
         replica's `KernelParams` (or None); signs: their stacked sign
-        vectors (`_signs`)."""
+        vectors (`stacked_signs`)."""
         eng = self.engine
         s = states.step
         u = torch.stack([nz.spike_uniform(s, eng.rows) for nz in noises])
@@ -158,25 +217,32 @@ class EnsembleEngine:
         return states, step_records(neurons, states.edges)
 
     def simulate(self, states: SimState, num_steps: int, seed: int = 0, noises=None,
-                 params: Optional[KernelParams] = None, probes=None, probe_states=None):
+                 params: Optional[KernelParams] = None, probes=None, probe_states=None,
+                 gather: bool = False):
         """Run all replicas `num_steps` steps.
 
-        states: (K,)-leading state (`init_states`).  noises: one draw source
-        per replica (default: `replica_noises(seed, K)` of the engine's rng).  params: (K,)
-        columns (`launch.sweep.pack_params`; None = the static configs).
+        states: this rank's block of the (K,)-leading state (`init_states`).
+        noises: one draw source per replica, all K (default:
+        `replica_noises(seed, K)` of the engine's rng).  params: (K,) columns
+        (`launch.sweep.pack_params`; None = the static configs).
         probes: a `core.probes.ProbeSet`, recorded for every replica
-        (probe_states: its (K,)-leading carry, None = fresh).
+        (probe_states: its carry of this rank's block, None = fresh).
+        gather: return the records of all K replicas (one gather over the
+        mesh after the run) instead of this rank's block.
         Returns (states, records with (num_steps, K) fields), and the probe
         states as a third element when probes ride along."""
-        k = states.dropped.shape[0]
+        kb = states.dropped.shape[0]
+        k = kb * (1 if self.mesh is None else self.mesh.size)
+        lo, hi = replica_block(self.mesh, k)
         if noises is None:
             noises = replica_noises(seed, k, self.engine.device, self.engine.engine_cfg.rng)
         if len(noises) != k:
             raise ValueError(f"{len(noises)} noise objects for {k} replicas")
-        rows = [None] * k if params is None else [params.row(r) for r in range(k)]
-        signs = self._signs(rows)
+        noises = noises[lo:hi]
+        rows = [None] * kb if params is None else [params.row(r) for r in range(lo, hi)]
+        signs = stacked_signs(self.engine, rows)
         if probes is not None and probe_states is None:
-            probe_states = probes.init(self.engine.n, start_step=states.step, batch=k,
+            probe_states = probes.init(self.engine.n, start_step=states.step, batch=kb,
                                        device=self.engine.device)
         recs = []
         for _ in range(num_steps):
@@ -186,6 +252,26 @@ class EnsembleEngine:
                 probe_states = probes.record(probe_states, prev, states, rec)
             recs.append(rec)
         recs = stack_records(recs, self.engine.device)
+        if gather:
+            recs = gather_records(self.mesh, recs)
         if probes is None:
             return states, recs
         return states, recs, probe_states
+
+
+# -- the contract auditor's registry (`repro_torch.audit`) ------------------------
+AUDIT = {
+    "entry_points": {
+        "ensemble.simulate": {
+            "rules": {
+                "R1": {},
+                # Replicas never communicate: no collective on any group.
+                "R2": {"allowed_groups": ()},
+                "R4": {"allowlist": (
+                    ("repro_torch.core.synapses.synaptic_input",
+                     "adds +1/-1 per spiking partner: integers, exact in float32 below 2^24"),
+                )},
+            },
+        },
+    },
+}

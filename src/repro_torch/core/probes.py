@@ -33,6 +33,7 @@ from repro_torch import device as _device
 from repro_torch.core.engine import SimState, StepRecord
 from repro_torch.core.msp import NeuronState
 from repro_torch.core.synapses import SynapseState
+from repro_torch.sharding import rules
 
 
 class ProbeState(NamedTuple):
@@ -56,9 +57,12 @@ class Probe:
     Subclasses define `row_struct(n)` -> (row shape, dtype) and
     `observe(prev, new, rec)` -> the row, over state of any leading shape.
 
-    row_sharded / needs_merge: how the distributed engine (ROADMAP.md Queue 1
-    item 11) will place the probe: the row's leading dim is the neuron axis,
-    or the row is a per-device partial to be summed."""
+    row_sharded: the row's leading dim is the neuron axis, so under the
+    distributed engines each rank records only its own rows into a
+    (chunk, n/d) buffer, with no collective.
+    needs_merge: `observe` returns a per-rank partial (its inputs, the edge
+    table, are cut by slot range) that the engine sums over the data group
+    (`record`'s merge) before the row is written."""
     name: str = "probe"
     row_sharded: bool = False
     needs_merge: bool = False
@@ -171,7 +175,8 @@ class ProbeSet:
                           buffers=buffers)
 
     def record(self, ps: ProbeState, prev: SimState, new: SimState,
-               rec: StepRecord, keep: Optional[np.ndarray] = None) -> ProbeState:
+               rec: StepRecord, keep: Optional[np.ndarray] = None,
+               merge: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> ProbeState:
         """Write one row per probe at the cursor (in place; see the module
         docstring) and return the state with the cursor advanced.  Past the
         chunk's end the last row is overwritten, as the reference's clamped
@@ -179,12 +184,16 @@ class ProbeSet:
 
         keep: optional (K,) bool of a batched state: only those replicas
         record and advance their cursors; the others are frozen (served
-        slots that are empty, finished mid-round, or not recording)."""
+        slots that are empty, finished mid-round, or not recording).
+        merge: the distributed engine's data-group sum for `needs_merge`
+        probes (None: the partial is the whole row)."""
         rows = np.minimum(ps.cursor, self.chunk_size - 1)
         if keep is not None and keep.all():
             keep = None
         for p in self.probes:
             row = p.observe(prev, new, rec)
+            if p.needs_merge and merge is not None:
+                row = merge(row)
             buf = ps.buffers[p.name]
             if rows.ndim == 0:
                 buf[int(rows)] = row
@@ -208,7 +217,12 @@ class ProbeWriter:
     """Flushes chunks to disk, one `chunk_<step0:09d>.npz` per chunk
     (`chunk_<step0:09d>_r<k>.npz` per replica of a batched state), each
     holding `__step0`, `__rows` and one (rows, *row_shape) array per probe.
-    Files are published atomically (write, fsync, rename)."""
+    Files are published atomically (write, fsync, rename).
+
+    A distributed run's state holds each rank's own rows of a `row_sharded`
+    probe: `flush(group=)` gathers them over the data group, once per probe
+    and flush, and the group's rank 0 writes the files, which then hold the
+    arrays of a single-device run."""
 
     def __init__(self, directory: str):
         self.directory = directory
@@ -218,7 +232,7 @@ class ProbeWriter:
                  buffers: Dict[str, torch.Tensor]) -> str:
         arrays = {"__step0": np.int64(step0), "__rows": np.int64(rows)}
         for name, buf in buffers.items():
-            arrays[name] = buf[:rows].cpu().numpy()
+            arrays[name] = buf[:rows].cpu().numpy()       # audit: ok (the chunk file)
         final = os.path.join(self.directory, fname)
         tmp = final + ".tmp"
         with open(tmp, "wb") as f:
@@ -228,13 +242,27 @@ class ProbeWriter:
         os.replace(tmp, final)
         return final
 
-    def flush(self, probe_set: ProbeSet, ps: ProbeState):
+    def flush(self, probe_set: ProbeSet, ps: ProbeState, group=None, replica_offset: int = 0):
         """Write the current chunk; returns the published path (one run), a
-        list of per-replica paths (batched), or None if the chunk is empty."""
+        list of per-replica paths (batched), or None if the chunk is empty
+        (and on every rank but rank 0 of `group`).
+
+        group: the data group of a distributed run (collective: every rank
+        of it must call).  replica_offset: the global index of the state's
+        first replica (an ensemble coordinate's block), which names the
+        per-replica files."""
         if ps.cursor.ndim > 1:
             raise NotImplementedError(
                 "ProbeWriter flushes at most one leading replica axis; "
                 f"got cursor of rank {ps.cursor.ndim}")
+        if group is not None:
+            dim = ps.cursor.ndim + 1              # the neuron dim of a row buffer
+            bufs = {p.name: (rules.gather_dim(group, ps.buffers[p.name], dim)
+                             if p.row_sharded else ps.buffers[p.name])
+                    for p in probe_set.probes}
+            if group.rank != 0:
+                return None
+            ps = ps._replace(buffers=bufs)
         if ps.cursor.ndim == 1:
             paths = []
             for k in range(ps.cursor.shape[0]):
@@ -242,8 +270,8 @@ class ProbeWriter:
                 if rows == 0:
                     continue
                 step0 = int(ps.step0[k])
-                paths.append(self._publish(f"chunk_{step0:09d}_r{k}.npz", rows, step0,
-                                           {n: b[k] for n, b in ps.buffers.items()}))
+                paths.append(self._publish(f"chunk_{step0:09d}_r{replica_offset + k}.npz", rows,
+                                           step0, {n: b[k] for n, b in ps.buffers.items()}))
             return paths or None
         rows = min(int(ps.cursor), probe_set.chunk_size)
         if rows == 0:

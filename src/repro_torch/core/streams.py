@@ -34,7 +34,7 @@ import torch
 from repro_torch import device as _device
 
 _M32 = 0xFFFFFFFF
-_TINY = float(torch.finfo(torch.float32).tiny)
+_TINY = float(torch.finfo(torch.float32).tiny)       # audit: ok (a constant)
 # Draw kinds, one word of every key.
 SPIKE, DELETE, DESCENT, LEAF, CONFLICT, DIRECT = range(6)
 

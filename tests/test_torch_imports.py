@@ -37,7 +37,10 @@ def test_scan_covers_the_package():
             "barnes_hut.py", "direct.py", "analysis.py", "ensemble.py", "probes.py",
             "manager.py", "sweep.py", "chip_smoke.py", "streams.py", "session.py",
             "batcher.py", "service.py", "serve.py", "distributed.py", "mesh.py", "rules.py",
-            "brain_dryrun.py"} <= names
+            "brain_dryrun.py", "report.py", "astlint.py", "tracer.py", "bad_examples.py",
+            "cli.py", "__main__.py"} <= names
+    assert {"audit", "launch", "sharding", "serve", "core", "kernels", "checkpoint"} <= {
+        p.parent.name for p in PORT_FILES}
 
 
 @pytest.fixture
@@ -67,27 +70,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         DistributedPlasticityEngine(pos, mesh.ShapeGroup(1))
     with pytest.raises(RuntimeError, match="cuda"):    # NCCL needs the card: no gloo fallback
         mesh.make_data_group("file:///nonexistent/rendezvous", 0, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_ensemble_group("file:///nonexistent/rendezvous", 0, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_sweep_groups(1, 1, "file:///nonexistent/rendezvous")
     assert device.resolve("cpu") == torch.device("cpu")
 
 
-def _unported(option):
-    """Build the entry point with an option that belongs to a later item."""
+def _unported(option, mesh):
+    """Build the entry point with a replica mesh (ported in the sixth slice)."""
     pos = np.random.default_rng(0).uniform(0, 1000.0, (16, 3)).astype(np.float32)
     eng = engine.PlasticityEngine(pos, device="cpu")
     if option == "ensemble-mesh":
-        ensemble.EnsembleEngine(eng, mesh=object())
-    elif option == "service-mesh":
-        from repro_torch.serve import SimulationService
-        SimulationService(pos, eng.msp_cfg, eng.fmm_cfg, num_slots=1, round_steps=100,
-                          checkpoint_dir="unused", mesh=object(), device="cpu")
+        return ensemble.EnsembleEngine(eng, mesh=mesh).init_states(4)
+    from repro_torch.serve import SimulationService
+    return SimulationService(pos, eng.msp_cfg, eng.fmm_cfg, num_slots=4, round_steps=100,
+                             checkpoint_dir="unused", mesh=mesh, device="cpu")
 
 
 @pytest.mark.parametrize("option", ["ensemble-mesh", "service-mesh"])
 def test_unported_options_raise_not_implemented(option):
-    """A replica mesh (ROADMAP Queue 1 item 11) raises; rng="counter" and
-    n_active are ported and construct."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _unported(option)
+    """The replica mesh that used to raise NotImplementedError is ported: a
+    mesh of 2 holds half the replicas or slots, one of 3 raises ValueError
+    (it does not divide 4); rng="counter" and n_active construct."""
+    from repro_torch.launch.mesh import ShapeGroup
+    built = _unported(option, ShapeGroup(2, 1, name="ensemble"))
+    held = built.dropped.shape[0] if option == "ensemble-mesh" else built.states.dropped.shape[0]
+    assert held == 2
+    with pytest.raises(ValueError, match="divide"):
+        _unported(option, ShapeGroup(3, name="ensemble"))
     assert engine.EngineConfig(rng="counter").rng == "counter"
 
 
