@@ -93,14 +93,35 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              Gloo on the card machine's CPU: a 2 x 2 layout at N = 256, K = 4
              (phase 3's scenario), each replica against the card's
              single-device run; and the service with mesh= at e = 2 on phase
-             3's traffic, every session against its isolated run on the card.
+             3's traffic, every session against its isolated run on the card;
+16. lm     — the LM substrate's serving path (`repro_torch.models`,
+             `launch/steps.py`, `launch/lm_serve.py`), which launches none of
+             the three kernels (their counts stay 0): (a) deepseek-v2-lite-16b
+             whole (27 layers, 15.7 B parameters, the port's seeded init on the
+             card) through `lm_serve.generate`: 8 prompts of 1024 tokens into
+             caches of 1088, the first token greedily, 63 decode steps; prefill
+             and decode times beside their bounds, time to first token, peak
+             memory, one profiled prefill and decode step (top ten operators,
+             idle share, the lm.* ranges); run twice from one seed, the same
+             tokens; (b) its decode (B = 2, 512 + 16 tokens, a capacity at
+             which no expert overflows) against forward_train in float32,
+             max |log-softmax diff| < 0.25, and the same in bf16 measured at
+             depths 2, 4, 8, 16 and 27; (c) its first two layers at B = 1,
+             64 + 4 tokens, card against CPU from the same weights; (d) the
+             other nine configs at full width with depth cut to one of each
+             kind of layer, decode against forward_train (the encoder: its
+             encode step); (e) all ten at reduced width, card against CPU,
+             and the MoE dispatch integers with overflow. Card against CPU,
+             routes may differ only at a near tie (top-k margin at most 1e-2)
+             and rows whose route differed are left out of the comparison.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
 m2m, probes, serve) zeroes the launch counts just before it and reads them
 just after; dist and sweep2d do so around each distributed engine run (and
 dist around each emulated per-rank descent), so the single-device runs they
-compare with are not counted.  The script prints the card's
+compare with are not counted; lm zeroes them before its runs and requires
+them still 0 after.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -108,6 +129,8 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -488,10 +511,10 @@ def phase_main(seed: int) -> dict:
                 peak_gib=peak / 2**30, tiers=counts, profiles=profiles)
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, top: int = 6) -> dict:
     """torch.profiler over fn(): wall time, device busy time (sum of kernel
     times), the number of device operations, device time per layer range
-    and the costliest operators."""
+    and the `top` costliest operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -505,7 +528,7 @@ def profile_window(fn) -> dict:
     # ranges span idle gaps too and are left out.
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CPU) / 1e3
-    ranges = ("step", "update", "pyramid", "traversal", "bh", "direct", "slots", "serve")
+    ranges = ("step", "update", "pyramid", "traversal", "bh", "direct", "slots", "serve", "lm")
     layers = {e.key: round(e.device_time_total / 1e3, 3) for e in events
               if e.device_type == DeviceType.CPU and e.key.split(".")[0] in ranges}
     # Kernels, copies and memsets run on the card (the ranges' device-side
@@ -514,7 +537,7 @@ def profile_window(fn) -> dict:
                      and e.key.split(".")[0] not in ranges)
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::") and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:6]
+                 key=lambda e: -e.self_device_time_total)[:top]
     return dict(wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
                 idle_share=round(1 - busy / wall, 3), device_ops=device_ops,
                 layers_device_ms=layers,
@@ -1938,6 +1961,394 @@ def phase_sweep2d(seed: int, sweep: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the LM substrate's serving path
+# ---------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 (tensor cores)
+LM_SERVED = "deepseek-v2-lite-16b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 64
+# Card against CPU: max and mean |logit diff| on every step whose token's
+# routes agree (bf16 products summed in another order: a few bf16 ulps of
+# logits of magnitude ~4, where an ulp is 0.03), and routes equal wherever
+# the router's k-th probability beats the (k+1)-th by more than LM_MARGIN.
+# Decode against forward_train: max |log-softmax diff| (the reference test's
+# bound) on every step and row.
+LM_MAX_DIFF, LM_MEAN_DIFF, LM_MARGIN, LM_LOGSOFTMAX = 0.25, 0.02, 1e-2, 0.25
+# Depth of each other config at full width: the smallest stack holding every
+# kind of layer it has (llama4: one dense + MoE super-layer; zamba2: six
+# mamba layers and the one shared-attention site after them).
+LM_DEPTH = {"llama4-maverick-400b-a17b": 2, "zamba2-7b": 6}
+LM_DEV = "cuda"                    # the card (a CPU rehearsal sets "cpu")
+
+
+class RouteLog:
+    """While active, records each MoE routing call's choices and router
+    probabilities (by wrapping `repro_torch.models.moe.route`)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def route(p, x, cfg):
+            gate, expert, probs = self._route(p, x, cfg)
+            self.calls.append((expert, probs))
+            return gate, expert, probs
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def route_diff(got: list, want: list, k: int) -> list:
+    """Per routing call of two runs, (same, margin, dp): whether each
+    token's k choices are equal (B, T), `want`'s k-th probability minus its
+    (k+1)-th, and the largest |probability difference| of the call."""
+    out = []
+    for (eg, pg), (ew, pw) in zip(got, want, strict=True):
+        top = pw.float().cpu().topk(k + 1, dim=-1).values
+        out.append(((eg.cpu() == ew.cpu()).all(-1), top[..., k - 1] - top[..., k],
+                    float((pg.float().cpu() - pw.float().cpu()).abs().max())))
+    return out
+
+
+def max_load(expert: torch.Tensor, cfg) -> tuple:
+    """(the most assignments an expert takes in one row, the capacity)."""
+    from repro_torch.models import moe
+    b, t, k = expert.shape
+    counts = torch.zeros((b, cfg.num_experts), dtype=torch.int64, device=expert.device)
+    counts.scatter_add_(1, expert.reshape(b, -1), torch.ones_like(expert.reshape(b, -1)))
+    return int(counts.max()), moe._capacity(t, cfg)
+
+
+def no_overflow(cfg):
+    """The config at a capacity factor at which no expert can overflow:
+    capacity >= tokens, since a token picks k distinct experts."""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k + 1)
+
+
+def rerouted_tokens(diffs: list, layers: int) -> int:
+    """Tokens whose choices differ in at least one of a pass's MoE layers."""
+    flips = 0
+    for i in range(0, len(diffs), max(layers, 1)):
+        flips += int(sum((~same).int() for same, _, _ in diffs[i:i + layers]).bool().sum())
+    return flips
+
+
+def step_rows(diffs: list, n_moe: int, step: int, b: int) -> torch.Tensor:
+    """The rows of a score step (prefill, then one per decode) whose token
+    kept its routes in every MoE layer: the step's token is the last of its
+    routing calls."""
+    rows = torch.ones(b, dtype=torch.bool)
+    for same, _, _ in diffs[step * n_moe:(step + 1) * n_moe]:
+        rows &= same[:, -1]
+    return rows
+
+
+def lm_card_vs_cpu(tag: str, cfg, seed: int, b: int, t: int, prompt: int) -> dict:
+    """The port on the card and on the CPU from the same weights (drawn on
+    the card, copied): prefill of `prompt` tokens, then t - prompt decode
+    steps (`lm_serve.score`); logits within LM_MAX_DIFF / LM_MEAN_DIFF on
+    rows whose routes agree."""
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import model as M
+    card = M.init_params(cfg, seed, LM_DEV)
+    cpu = M.LMModel(cfg, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = lm_tokens(cfg, b, t, seed)
+    with RouteLog() as rg:
+        got = [x.cpu() for x in lm_serve.score(card, toks, prompt)]
+    with RouteLog() as rw:
+        want = lm_serve.score(cpu, toks.cpu(), prompt)
+    n_moe = len(rw.calls) // len(want)
+    diffs = route_diff(rg.calls, rw.calls, cfg.top_k)
+    # The MoE layer is the last of these stacks: its input differs between
+    # the card and the CPU by rounding alone, so a route may differ only at
+    # a near tie.
+    for same, margin, _ in diffs:
+        if (~same & (margin > LM_MARGIN)).any():
+            raise AssertionError(f"{tag}: a route differs at a top-{cfg.top_k} margin of "
+                                 f"{float(margin[~same].max())} > {LM_MARGIN}")
+    worst, worst_all, mean, kept = 0.0, 0.0, 0.0, 0
+    for j, (g, w) in enumerate(zip(got, want)):
+        rows = step_rows(diffs, n_moe, j, b)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: step {j} logits not finite")
+        d = (g - w).abs()
+        worst_all = max(worst_all, float(d.max()))
+        if rows.any():
+            worst, mean = max(worst, float(d[rows].max())), max(mean, float(d[rows].mean()))
+        kept += int(rows.sum())
+    if worst > LM_MAX_DIFF or mean > LM_MEAN_DIFF or 2 * kept <= len(got) * b:
+        raise AssertionError(f"{tag}: card vs CPU max {worst}, mean {mean}, "
+                             f"{kept} of {len(got) * b} rows kept")
+    return dict(max_diff=worst, mean_diff=mean, max_diff_all_rows=worst_all, rows=kept,
+                of=len(got) * b, tokens_rerouted=rerouted_tokens(diffs, n_moe),
+                max_router_prob_diff=max((dp for _, _, dp in diffs), default=0.0))
+
+
+def lm_tokens(cfg, b: int, t: int, seed: int) -> torch.Tensor:
+    """Seeded prompts on the card: token ids, or frame features for audio."""
+    gen = torch.Generator(device=LM_DEV).manual_seed(seed + 7)
+    if cfg.family == "audio":
+        return torch.randn((b, t, cfg.frontend_dim), generator=gen, device=LM_DEV)
+    return torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=LM_DEV,
+                         dtype=torch.int32)
+
+
+def lm_decode_vs_train(tag: str, model, toks: torch.Tensor, prompt: int,
+                       bound: float | None = LM_LOGSOFTMAX) -> dict:
+    """Prefill and decode through the caches against forward_train over the
+    same tokens, on the card: max |log-softmax diff| < `bound` on every step
+    and row (None: measured only).  Reports the tokens whose MoE routes
+    differ between the two passes (GEMMs of other shapes round otherwise; a
+    near-tied route flips, and the changed token reaches later ones through
+    attention)."""
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import model as M
+    with RouteLog() as rt:
+        full = M.forward_train(model, toks)
+    with RouteLog() as rs:
+        steps = lm_serve.score(model, toks, prompt)
+    # forward_train's routes cut to the score's calls: prefill's positions,
+    # then each decode step's one
+    want = [(e[:, sl], p[:, sl]) for j in range(len(steps))
+            for sl in [slice(0, prompt) if j == 0 else slice(prompt + j - 1, prompt + j)]
+            for e, p in rt.calls]
+    diffs = route_diff(rs.calls, want, model.cfg.top_k)
+    overflow = [max_load(e, model.cfg) for e, _ in rt.calls + rs.calls]
+    if any(load > cap for load, cap in overflow):
+        raise AssertionError(f"{tag}: an expert overflowed ({overflow})")
+    worst = 0.0
+    for j, lg in enumerate(steps):
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{tag}: step {j} logits not finite")
+        d = (torch.log_softmax(lg.double(), -1)
+             - torch.log_softmax(full[:, prompt - 1 + j].double(), -1)).abs()
+        worst = max(worst, float(d.max()))
+    if not torch.isfinite(full).all() or (bound is not None and worst >= bound):
+        raise AssertionError(f"{tag}: decode vs train max |log-softmax diff| {worst}")
+    return dict(max_logsoftmax_diff=worst, steps=len(steps), rows=toks.shape[0],
+                tokens_rerouted=rerouted_tokens(diffs, len(rt.calls)),
+                tokens=sum(int(same.numel()) for same, _, _ in diffs) // max(len(rt.calls), 1))
+
+
+@contextlib.contextmanager
+def float32_activations():
+    """The LM modules' activations and caches in float32 while active."""
+    from repro_torch.models import layers
+    act = layers.ACT_DTYPE
+    layers.ACT_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        layers.ACT_DTYPE = act
+
+
+def lm_served(seed: int) -> dict:
+    """(a): deepseek-v2-lite-16b whole, the lm_serve flow, twice from one seed."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import model as M
+    cfg = configs.get(LM_SERVED)
+    runs = []
+    for rep in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = M.init_params(cfg, seed, LM_DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        prompts = lm_tokens(cfg, LM_BATCH, LM_PROMPT, seed)
+        res = lm_serve.generate(model, prompts, LM_NEW)
+        if not res.all_finite:
+            raise AssertionError("lm: a served logit is not finite")
+        runs.append(dict(tokens=res.tokens.cpu(), res=res, init_s=init_s,
+                         peak=torch.cuda.max_memory_allocated()))
+        if rep == 0:
+            weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+            caches = M.make_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, LM_DEV)
+            with FlopCounterMode(display=False) as fc:
+                M.forward_prefill(model, prompts, caches)
+            prefill_flops = fc.get_total_flops()
+            caches = M.make_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, LM_DEV)
+            prof_prefill = profile_window(lambda: M.forward_prefill(model, prompts, caches),
+                                          top=10)
+            tok = res.tokens[:, :1]
+            prof_decode = profile_window(
+                lambda: M.forward_decode(model, tok, caches, LM_PROMPT), top=10)
+            del caches
+            cache_row = sum(c["c"][0, 0].numel() + c["kr"][0, 0].numel()
+                            for grp in M.make_cache(cfg, 1, 1, LM_DEV).values()
+                            for c in grp) * 2
+            del model
+            torch.cuda.empty_cache()
+    if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
+        raise AssertionError("lm: two runs from one seed generated other tokens")
+    res = runs[0]["res"]
+    steps = res.step_ms[1:]
+    step_ms = float(np.median(steps))
+    median_pos = LM_PROMPT + 1 + len(steps) // 2
+    # decode: every weight once (8 rows x 6 choices: every expert's 8 slots
+    # hold tokens or zeros, so every expert's weights are read), the caches up
+    # to the step's position, the logits written
+    decode_bytes = weight_bytes + LM_BATCH * (median_pos + 1) * cache_row \
+        + LM_BATCH * cfg.vocab_size * 4
+    decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    prefill_bytes = weight_bytes + LM_BATCH * LM_PROMPT * cache_row \
+        + LM_BATCH * cfg.vocab_size * 4
+    prefill_bound = max(prefill_flops / BF16_FLOP_PER_S, prefill_bytes / HBM_BYTES_PER_S) * 1e3
+    out = dict(
+        model=cfg.name, params=weight_bytes // 2, weight_gb=weight_bytes / 1e9,
+        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+        init_s=[r["init_s"] for r in runs],
+        prefill_ms=[r["res"].prefill_ms for r in runs],
+        prefill_tok_s=[LM_BATCH * LM_PROMPT / r["res"].prefill_ms * 1e3 for r in runs],
+        ttft_ms=[r["res"].first_token_ms for r in runs],
+        decode_step_ms=[float(np.median(r["res"].step_ms[1:])) for r in runs],
+        first_decode_step_ms=[r["res"].step_ms[0] for r in runs],
+        decode_tok_s=[LM_BATCH / float(np.median(r["res"].step_ms[1:])) * 1e3 for r in runs],
+        peak_gib=[r["peak"] / 2**30 for r in runs],
+        prefill_flops=prefill_flops, prefill_bytes=prefill_bytes, decode_bytes=decode_bytes,
+        prefill_bound_ms=prefill_bound,
+        prefill_bound_by=bound_name(prefill_bytes / HBM_BYTES_PER_S,
+                                    prefill_flops / BF16_FLOP_PER_S),
+        decode_bound_ms=decode_bound, decode_bound_by="bytes",
+        profile_prefill=prof_prefill, profile_decode=prof_decode)
+    log(f"[lm] (a) {cfg.name} whole ({weight_bytes / 1e9:.2f} GB bf16), {LM_BATCH} x "
+        f"{LM_PROMPT} prompt, {LM_NEW} tokens: prefill {res.prefill_ms:.2f} ms "
+        f"({out['prefill_tok_s'][0]:.0f} tok/s) against a {prefill_bound:.2f} ms bound "
+        f"({out['prefill_bound_by']}: {prefill_flops / 1e12:.2f} TFLOP); TTFT "
+        f"{res.first_token_ms:.2f} ms; decode {step_ms:.3f} ms a step (median of "
+        f"{len(steps)}; {out['decode_tok_s'][0]:.1f} tok/s) against a {decode_bound:.3f} ms "
+        f"bound (bytes); peak {out['peak_gib'][0]:.2f} GiB; same tokens twice")
+    for label in ("prefill", "decode"):
+        log(f"[lm] profile of one {label}: " + json.dumps(out[f"profile_{label}"]))
+    log("[lm] " + json.dumps({k: v for k, v in out.items() if not k.startswith("profile")}))
+    return out
+
+
+def phase_lm(seed: int) -> dict:
+    """16. lm: the LM substrate's serving path (no kernel of the three)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    matmul = torch.backends.cuda.matmul
+    reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
+    # bf16 GEMMs sum in float32 all the way, as the CPU's do; float32 products
+    # (unembedding, router, MLA's absorbed decode) stay out of TF32 (main()).
+    matmul.allow_bf16_reduced_precision_reduction = False
+    ops.reset_launches()
+    out = {"served": lm_served(seed)}
+
+    # (b) decode consistency at full width and depth, where no expert can
+    # overflow.  In bf16 this random-weight stack is chaotic: the
+    # reference's init draws the experts at fan_in = E (64), so their outputs
+    # dwarf the rest of the residual, and a near-tied route that a GEMM of
+    # another shape rounds the other way changes a token, which attention
+    # carries to the next ones.  So the check holds the cache path in float32
+    # (parameters and activations), and the bf16 run is measured, not held.
+    cfg_nd = no_overflow(configs.get(LM_SERVED))
+    toks = lm_tokens(cfg_nd, 2, 528, seed)
+    bf16 = {}
+    for depth in (2, 4, 8, 16):
+        model = M.init_params(dataclasses.replace(cfg_nd, num_layers=depth), seed, LM_DEV)
+        bf16[depth] = lm_decode_vs_train("lm (b) bf16", model, toks, 512, bound=None)
+        del model
+    model = M.init_params(cfg_nd, seed, LM_DEV)
+    bf16[cfg_nd.num_layers] = lm_decode_vs_train("lm (b) bf16", model, toks, 512, bound=None)
+    with float32_activations():
+        model = model.float()
+        out["consistency"] = dict(lm_decode_vs_train("lm (b)", model, toks, 512),
+                                  bf16_by_depth=bf16)
+    log(f"[lm] (b) {LM_SERVED} at capacity_factor {cfg_nd.capacity_factor:.4f}, B = 2, "
+        f"512 + 16: decode vs forward_train in float32 {json.dumps(out['consistency'])}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU at full width, the dense prefix and one MoE layer
+    cfg2 = dataclasses.replace(cfg_nd, num_layers=2)
+    out["card_vs_cpu"] = lm_card_vs_cpu("lm (c)", cfg2, seed, 1, 68, 64)
+    log(f"[lm] (c) {LM_SERVED} 2 layers, B = 1, 64 + 4: card vs CPU "
+        f"{json.dumps(out['card_vs_cpu'])}")
+    torch.cuda.empty_cache()
+
+    # (d) every other config at full width, depth cut
+    out["full_width"] = {}
+    for name, base in configs.ARCHS.items():
+        if name == LM_SERVED:
+            continue
+        cfg = no_overflow(dataclasses.replace(base, num_layers=LM_DEPTH.get(name, 2)))
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = M.init_params(cfg, seed, LM_DEV)
+        toks = lm_tokens(cfg, 2, 128, seed)
+        if cfg.is_encoder:
+            from repro_torch.launch import steps as lm_steps
+            logits = lm_steps.make_prefill_step(cfg)(model, {"inputs": toks})
+            if logits.shape != (2, 128, cfg.vocab_size) or not torch.isfinite(logits).all():
+                raise AssertionError(f"lm (d) {name}: encode step {tuple(logits.shape)}")
+            res = dict(encode=True)
+        else:
+            res = lm_decode_vs_train(f"lm (d) {name}", model, toks, 125)
+        res.update(layers=cfg.num_layers, weight_gb=sum(
+            p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            seconds=time.perf_counter() - t)
+        out["full_width"][name] = res
+        log(f"[lm] (d) {name} at full width, {cfg.num_layers} layers: {json.dumps(res)}")
+        del model
+        torch.cuda.empty_cache()
+
+    # (e) card against CPU at reduced width, all ten
+    out["reduced"] = {name: lm_card_vs_cpu(f"lm (e) {name}",
+                                           no_overflow(base.reduced()),
+                                           seed, 2, 19, 16)
+                      if base.supports_decode else lm_encode_card_vs_cpu(base.reduced(), seed)
+                      for name, base in configs.ARCHS.items()}
+    log(f"[lm] (e) reduced widths, card vs CPU: {json.dumps(out['reduced'])}")
+    lm_dispatch_card_vs_cpu(seed)
+
+    if any(ops.launches.values()):
+        raise AssertionError(f"lm: the LM path launched {ops.launches}")
+    matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
+    return out
+
+
+def lm_encode_card_vs_cpu(cfg, seed: int) -> dict:
+    """(e) for the encoder: the encode step's logits, card against CPU."""
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import model as M
+    card = M.init_params(cfg, seed, LM_DEV)
+    cpu = M.LMModel(cfg, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = lm_tokens(cfg, 2, 19, seed)
+    encode = lm_steps.make_prefill_step(cfg)
+    d = (encode(card, {"inputs": toks}).cpu() - encode(cpu, {"inputs": toks.cpu()})).abs()
+    if float(d.max()) > LM_MAX_DIFF or float(d.mean()) > LM_MEAN_DIFF:
+        raise AssertionError(f"lm (e) {cfg.name}: encode max {float(d.max())}")
+    return dict(max_diff=float(d.max()), mean_diff=float(d.mean()))
+
+
+def lm_dispatch_card_vs_cpu(seed: int) -> None:
+    """(e) the MoE dispatch integers at capacity_factor 1.25, where tokens
+    overflow: equal on the card and the CPU for the same choices."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(seed)
+    expert = torch.randint(0, 4, (2, 64, 6), generator=gen)       # crowds 4 of 64 experts
+    cap = 8
+    got, want = moe.dispatch(expert.to(LM_DEV), 64, cap), moe.dispatch(expert, 64, cap)
+    for f, g, w in zip(moe.Dispatch._fields, got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"lm (e): dispatch {f} differs on the card")
+    if bool(want.keep.all()):
+        raise AssertionError("lm (e): no assignment overflowed")
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -1948,7 +2359,7 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes", "serve", "dist", "sweep2d")
+          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm")
 
 
 def main() -> int:
@@ -2002,6 +2413,8 @@ def main() -> int:
             run[name] = phase_dist(args.seed, run["main"])
         elif name == "sweep2d":
             run[name] = phase_sweep2d(args.seed, run["sweep"])
+        elif name == "lm":
+            run[name] = phase_lm(args.seed)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")

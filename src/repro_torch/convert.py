@@ -1,4 +1,5 @@
-"""Carry simulation state and configs between the JAX package and the port.
+"""Carry simulation state and configs, and the LM substrate's parameter and
+cache trees, between the JAX package and the port.
 
 In this system the "weights" are the simulation state and its configs.
 Both directions go through numpy arrays and plain values, so this module
@@ -127,3 +128,106 @@ def configs_from_jax(msp: dict, fmm: dict, engine: dict):
     fields."""
     return (_port_config(MSPConfig, msp), _port_config(FMMConfig, fmm),
             _port_config(EngineConfig, engine))
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate: parameter and cache trees
+# ---------------------------------------------------------------------------
+#
+# A JAX parameter tree is a nested dict of arrays whose layer stacks
+# ("layers", "dense_prefix", "dense_inter") carry a leading (L,) axis; the
+# port's `LMModel` holds the same leaves under the same names, one module per
+# layer, so the leaf at path ("layers", "attn", "wq") row i is the parameter
+# "layers.<i>.attn.wq".  A JAX cache tree stacks every group (the hybrid's
+# "shared_attn" over its sites too); the port's caches are {group: [per-layer
+# dict]}.  bfloat16 crosses as its bits (`torch.from_numpy` refuses
+# ml_dtypes' bfloat16), so both directions are exact.
+
+
+def _leaves(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _set(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.array(a, order="C")               # a writable copy (JAX's arrays are read-only)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                     # JAX's numpy bfloat16 (not JAX itself)
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"):
+    """An `LMModel` of `cfg` on `device` holding the JAX parameter tree's
+    leaves (numpy arrays, bfloat16 as ml_dtypes'), bit for bit."""
+    from repro_torch.models.model import STACKS, LMModel
+    dev = _device.resolve(device)
+    flat = {}
+    for path, leaf in _leaves(tree):
+        leaf = np.asarray(leaf)
+        if path[0] in STACKS:
+            for i in range(leaf.shape[0]):
+                flat[".".join((path[0], str(i)) + path[1:])] = leaf[i]
+        else:
+            flat[".".join(path)] = leaf
+    model = LMModel(cfg, None, dev)
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise KeyError(f"lm_params_from_jax: leaves {sorted(set(flat) ^ set(params))} "
+                       "are not in both trees")
+    for name, p in params.items():
+        t = _to_torch(flat[name])
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(f"lm_params_from_jax: {name} is {tuple(t.shape)} {t.dtype}, "
+                             f"the model's {tuple(p.shape)} {p.dtype}")
+        p.data.copy_(t)
+    return model
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The model's parameters as the JAX tree: nested dicts of numpy arrays,
+    the layer stacks stacked along a leading axis."""
+    from repro_torch.models.model import STACKS
+    stacks, out = {}, {}
+    for name, p in model.named_parameters():
+        path = tuple(name.split("."))
+        if path[0] in STACKS:
+            stacks.setdefault((path[0],) + path[2:], []).append(_to_numpy(p))
+        else:
+            _set(out, path, _to_numpy(p))
+    for path, rows in stacks.items():
+        _set(out, path, np.stack(rows))
+    return out
+
+
+def lm_cache_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:
+    """The port's caches ({group: [per-layer dict]}) from a JAX cache tree."""
+    dev = _device.resolve(device)
+    out = {}
+    for group, leaves in tree.items():
+        n = {np.asarray(v).shape[0] for v in leaves.values()}.pop()
+        out[group] = [{k: _to_torch(np.asarray(v)[i]).to(dev) for k, v in leaves.items()}
+                      for i in range(n)]
+    return out
+
+
+def lm_cache_to_numpy(caches: dict) -> dict:
+    """The JAX cache tree (every group stacked) from the port's caches."""
+    return {group: {k: np.stack([_to_numpy(c[k]) for c in layers]) for k in layers[0]}
+            for group, layers in caches.items()}

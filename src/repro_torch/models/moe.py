@@ -1,0 +1,118 @@
+"""Mixture-of-Experts layer: top-k routing with capacity-based sparse dispatch
+(port of `repro.models.moe`).
+
+* Dispatch is sort-free and row-local: each assignment's rank within its
+  expert is a cumulative count of one-hots over the row's flattened (S*k)
+  assignment order; an expert takes its first `capacity` assignments, the
+  rest go to an overflow bin at `E * C` that is sliced off.  Expert FFNs
+  run as batched einsums over the (B, E, C, d) buffer, so FLOPs follow the
+  capacity, not E x tokens.
+* Experts use SwiGLU; shared experts are a plain dense SwiGLU of width
+  n_shared * moe_d_ff applied to every token.
+* Router softmax and gate renormalisation run in float32.
+* Top-k: a stable descending sort, so on a tie the lower expert index
+  comes first, as `jax.lax.top_k` puts it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, f: int, gen, device):
+        super().__init__()
+        self.wi = L.he_init((d, f), gen, device)
+        self.wg = L.he_init((d, f), gen, device)
+        self.wo = L.he_init((f, d), gen, device, fan_in=f)
+
+
+def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    h = L.silu(x @ p.wg.to(x.dtype)) * (x @ p.wi.to(x.dtype))
+    return h @ p.wo.to(x.dtype)
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen, device):
+        super().__init__()
+        e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+        self.router = L.he_init((d, e), gen, device, dtype=torch.float32)
+        self.wi = L.he_init((e, d, f), gen, device)
+        self.wg = L.he_init((e, d, f), gen, device)
+        self.wo = L.he_init((e, f, d), gen, device, fan_in=f)
+        if cfg.num_shared_experts:
+            self.shared = SwiGLU(d, f * cfg.num_shared_experts, gen, device)
+
+
+def _capacity(tokens: int, cfg: ModelConfig) -> int:
+    c = int(tokens * cfg.top_k * cfg.capacity_factor / cfg.num_experts)
+    return max(8, (c + 7) // 8 * 8)
+
+
+def route(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+    """Router in float32: (gate (B,S,k) renormalised, expert (B,S,k) int64,
+    probs (B,S,E))."""
+    probs = torch.softmax(x.float() @ p.router, dim=-1)            # (B, S, E)
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = gate[..., :cfg.top_k], expert[..., :cfg.top_k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    return gate, expert, probs
+
+
+class Dispatch(NamedTuple):
+    rank: torch.Tensor            # (B, S*k) int32: rank within the expert
+    keep: torch.Tensor            # (B, S*k) bool: rank < capacity
+    slot: torch.Tensor            # (B, S*k) int64: e * C + rank, or E * C (overflow)
+    token_of_slot: torch.Tensor   # (B, E*C) int64: the token in each slot, S if empty
+
+
+def dispatch(expert: torch.Tensor, num_experts: int, cap: int) -> Dispatch:
+    """The integer dispatch of (B, S, k) expert choices into (E, C) slots."""
+    b, s, k = expert.shape
+    e = num_experts
+    flat_e = expert.reshape(b, s * k)
+    one_hot = (flat_e[..., None] == torch.arange(e, device=expert.device)).to(torch.int32)
+    rank = torch.gather(torch.cumsum(one_hot, dim=1, dtype=torch.int32) - 1, 2,
+                        flat_e[..., None])[..., 0]                  # (B, S*k)
+    keep = rank < cap
+    slot = torch.where(keep, flat_e * cap + rank, e * cap)
+    # Kept slots are distinct (ranks count up within an expert); every
+    # dropped assignment lands in the overflow column, sliced off below, so
+    # which of them wins that column does not matter.
+    flat_tok = torch.arange(s, device=expert.device).repeat_interleave(k)
+    token_of_slot = torch.full((b, e * cap + 1), s, dtype=torch.int64, device=expert.device)
+    token_of_slot.scatter_(1, slot, flat_tok.expand(b, s * k))
+    return Dispatch(rank, keep, slot, token_of_slot[:, :e * cap])
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  Row-local dispatch (capacity per row)."""
+    with record_function("lm.moe"):
+        b, s, d = x.shape
+        e = cfg.num_experts
+        cap = _capacity(s, cfg)
+        gate, expert, _ = route(p, x, cfg)
+        dsp = dispatch(expert, e, cap)
+
+        rows = torch.arange(b, device=x.device)[:, None]
+        x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+        hidden = x_pad[rows, dsp.token_of_slot].reshape(b, e, cap, d)   # (B, E, C, d)
+
+        g = L.silu(torch.einsum('becd,edf->becf', hidden, p.wg.to(x.dtype)))
+        u = torch.einsum('becd,edf->becf', hidden, p.wi.to(x.dtype))
+        y = torch.einsum('becf,efd->becd', g * u, p.wo.to(x.dtype)).reshape(b, e * cap, d)
+
+        # combine: each token gathers its k expert outputs
+        safe_slot = torch.clamp_max(dsp.slot, e * cap - 1)
+        picked = torch.where(dsp.keep[..., None], y[rows, safe_slot], 0)
+        picked = picked.reshape(b, s, cfg.top_k, d)
+        out = torch.einsum('bskd,bsk->bsd', picked, gate.to(x.dtype))
+        if cfg.num_shared_experts:
+            out = out + swiglu(p.shared, x)
+        return out

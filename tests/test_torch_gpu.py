@@ -288,3 +288,49 @@ def test_served_traffic_on_card_equals_cpu(cuda_device):
         assert (got.probe_rows is None) == (want.probe_rows is None)
         for name, rows in (want.probe_rows or {}).items():
             assert torch.equal(got.probe_rows[name], rows), f"{sid}: probe {name}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama4-maverick-400b-a17b", "deepseek-v2-lite-16b",
+                                  "chameleon-34b", "yi-6b", "qwen2-0.5b", "qwen3-8b",
+                                  "internlm2-1.8b", "zamba2-7b", "hubert-xlarge", "mamba2-1.3b"])
+def test_lm_reduced_on_card_equals_cpu(cuda_device, name):
+    """The LM serving path at reduced width: prefill and 3 decode steps (the
+    encode step for the encoder) on the card and the CPU from the same
+    weights, logits within 0.25 and 0.02 on average (bf16 products summed in
+    another order); MoE at capacity_factor 8 (no overflow); and no launch of
+    the three FMM kernels."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import lm_serve, steps
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(configs.get(name).reduced(), capacity_factor=8.0)
+    ops.reset_launches()
+    card = M.init_params(cfg, 0, cuda_device)
+    cpu = M.LMModel(cfg, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    if cfg.is_encoder:
+        x = torch.randn((2, 19, cfg.frontend_dim), generator=gen)
+        encode = steps.make_prefill_step(cfg)
+        got, want = [encode(card, {"inputs": x.to(cuda_device)})], [encode(cpu, {"inputs": x})]
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (2, 19), generator=gen, dtype=torch.int32)
+        got = lm_serve.score(card, toks.to(cuda_device), 16)
+        want = lm_serve.score(cpu, toks, 16)
+    for g, w in zip(got, want, strict=True):
+        d = (g.cpu() - w).abs()
+        assert torch.isfinite(g).all() and float(d.max()) <= 0.25 and float(d.mean()) <= 0.02
+    assert not any(ops.launches.values())
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_on_card_equals_cpu(cuda_device):
+    """The integer dispatch with overflowing experts, exactly."""
+    from repro_torch.models import moe
+    expert = torch.randint(0, 4, (2, 64, 6), generator=torch.Generator().manual_seed(0))
+    got, want = moe.dispatch(expert.to(cuda_device), 64, 8), moe.dispatch(expert, 64, 8)
+    assert not bool(want.keep.all())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

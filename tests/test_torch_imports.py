@@ -38,9 +38,13 @@ def test_scan_covers_the_package():
             "manager.py", "sweep.py", "chip_smoke.py", "streams.py", "session.py",
             "batcher.py", "service.py", "serve.py", "distributed.py", "mesh.py", "rules.py",
             "brain_dryrun.py", "report.py", "astlint.py", "tracer.py", "bad_examples.py",
-            "cli.py", "__main__.py"} <= names
-    assert {"audit", "launch", "sharding", "serve", "core", "kernels", "checkpoint"} <= {
-        p.parent.name for p in PORT_FILES}
+            "cli.py", "__main__.py", "config.py", "layers.py", "attention.py", "moe.py",
+            "mamba2.py", "model.py", "steps.py", "lm_serve.py", "deepseek_v2_lite_16b.py",
+            "llama4_maverick_400b_a17b.py", "chameleon_34b.py", "yi_6b.py", "qwen2_0_5b.py",
+            "qwen3_8b.py", "internlm2_1_8b.py", "zamba2_7b.py", "hubert_xlarge.py",
+            "mamba2_1_3b.py", "convert.py"} <= names
+    assert {"audit", "launch", "sharding", "serve", "core", "kernels", "checkpoint", "models",
+            "configs"} <= {p.parent.name for p in PORT_FILES}
 
 
 @pytest.fixture
