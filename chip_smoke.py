@@ -115,13 +115,37 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              routes may differ only at a near tie (top-k margin at most 1e-2)
              and rows whose route differed are left out of the comparison.
 
+17. train  — the LM substrate's training path (`launch/steps.py`
+             `make_train_step`, `optim/adamw.py`, `data/pipeline.py`,
+             `runtime/failures.py`, the flash backward), which launches none
+             of the three kernels (their counts stay 0): (a) qwen2-0.5b whole
+             (24 layers, 494 M parameters, seeded init) at 4 x 4096, 30 AdamW
+             steps with remat on the Markov stream: every loss and grad norm
+             finite, the mean of the last 5 losses below the first 5's; the
+             median step, tokens/s, peak memory, one profiled step, one
+             step's operations by dtype beside their bound, a remat=False
+             step; (b) the other nine configs at full width, depth cut as in
+             phase 16 (d) (llama4 with 4 experts), two steps at 2 x 1024;
+             (c) all ten at reduced width, one step card against CPU from
+             the same parameters and batch (loss, grad norm, lr, mu, nu,
+             master, params at the CPU tests' tolerances); (d) the flash
+             backward in bf16 against a float64 naive attention's autograd
+             (qwen2's and MLA's widths), and one qwen2 layer's attention
+             forward and backward timed at 4 x 4096; (e) three steps twice
+             from one state give equal bits, and ten steps with a failure
+             injected at step 6 under `RestartSupervisor` and
+             `CheckpointManager` end equal to the uninterrupted run.
+
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
 m2m, probes, serve) zeroes the launch counts just before it and reads them
 just after; dist and sweep2d do so around each distributed engine run (and
 dist around each emulated per-rank descent), so the single-device runs they
-compare with are not counted; lm zeroes them before its runs and requires
-them still 0 after.  The script prints the card's
+compare with are not counted; lm and train zero them before their runs and
+require them still 0 after.  lm serves under the port's own
+`torch.inference_mode()`, so its peak memory shows that serving builds no
+graph; only its `forward_train` reference passes run under
+`torch.no_grad()`.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -133,6 +157,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1992,7 +2017,7 @@ class RouteLog:
 
         def route(p, x, cfg):
             gate, expert, probs = self._route(p, x, cfg)
-            self.calls.append((expert, probs))
+            self.calls.append((expert, probs.detach()))
             return gate, expert, probs
         moe.route = route
         return self
@@ -2110,7 +2135,7 @@ def lm_decode_vs_train(tag: str, model, toks: torch.Tensor, prompt: int,
     attention)."""
     from repro_torch.launch import lm_serve
     from repro_torch.models import model as M
-    with RouteLog() as rt:
+    with RouteLog() as rt, torch.no_grad():    # the reference pass: no graph
         full = M.forward_train(model, toks)
     with RouteLog() as rs:
         steps = lm_serve.score(model, toks, prompt)
@@ -2349,6 +2374,458 @@ def lm_dispatch_card_vs_cpu(seed: int) -> None:
         raise AssertionError("lm (e): no assignment overflowed")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the LM substrate's training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_GLOBAL_BATCH = 4, 4096, 30, 256   # TRAIN_4K's length
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=5, total_steps=30)
+TRAIN_SMALL_B, TRAIN_SMALL_S = 2, 1024
+LLAMA4_TRAIN_EXPERTS = 4
+# The CPU tests' tolerances (tests/_torch_lm.py): the loss within 0.05,
+# gradients (here mu, (1 - b1) g) within 5 % of the leaf's max |g| with a
+# floor of 1e-6 of the largest leaf's, nu within 10.5 %; master and params
+# within 2 lr everywhere (an AdamW step is ~ lr sign(g)) and within 1e-6
+# relative where |g| exceeds the gradient tolerance.
+TRAIN_LOSS_TOL, TRAIN_GRAD_FRAC, TRAIN_GRAD_FLOOR = 0.05, 0.05, 1e-6
+# (c): at most this many (token, routing call) pairs may differ at a near
+# tie: one token in one MoE layer, seen in the forward and again in remat's
+# recomputation.
+TRAIN_MAX_FLIPS = 2
+# The flash backward in bf16 against a float64 naive attention's autograd:
+# max |error| of dq, dk and dv over their max |g| (bf16 outputs and the
+# forward's bf16 probabilities: a few bf16 ulps, 2^-8 each).
+FLASH_BWD_BOUND = 2e-2
+# (B, S, H, KV, Dq, Dv, causal) of the flash backward checks: qwen2's width
+# and MLA's (Dq 192, Dv 128) both ways.
+FLASH_CASES = {"qwen2": (1, 4096, 14, 2, 64, 64, True),
+               "mla-causal": (1, 2048, 16, 16, 192, 128, True),
+               "mla-bidirectional": (1, 2048, 16, 16, 192, 128, False)}
+
+
+class DtypeFlops:
+    """Counts the operations of the ops that `FlopCounterMode` knows (GEMMs,
+    convolutions, attention) by the dtype of their first tensor input."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import FlopCounterMode
+        registry, counts = FlopCounterMode(display=False).flop_registry, {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                packet = func._overloadpacket
+                if packet in registry:
+                    dt = next(a.dtype for a in args if isinstance(a, torch.Tensor))
+                    counts[str(dt)] = counts.get(str(dt), 0) + registry[packet](
+                        *args, **kwargs, out_val=out)
+                return out
+
+        self.counts, self._mode = counts, Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+PEAK_FLOP_PER_S = {"torch.bfloat16": BF16_FLOP_PER_S, "torch.float32": FP32_FLOP_PER_S}
+
+
+def train_state_bytes(state) -> int:
+    """Bytes of the params and the optimizer state (read once, written once
+    by a step)."""
+    o = state.opt
+    trees = [state.params, o.mu, o.nu] + ([o.master] if o.master is not None else [])
+    return sum(t.numel() * t.element_size() for tree in trees for t in tree.values())
+
+
+def run_train_steps(model, state, step_fn, cfg, data, first: int, count: int, b: int, s: int):
+    """`count` steps from step `first`: the state, and per step the loss and
+    grad norm (read on the host after the step, as `launch.lm_train` does)
+    and the step's time by CUDA events."""
+    from repro_torch.data.pipeline import make_batch
+    losses, norms, times = [], [], []
+    for i in range(first, first + count):
+        batch = make_batch(cfg, data, i, b, s, LM_DEV)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, m = step_fn(model, state, batch)
+        t1.record()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(t0.elapsed_time(t1))
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"train {cfg.name}: losses {losses}, grad norms {norms}")
+    return state, losses, norms, times
+
+
+def train_whole(seed: int) -> dict:
+    """(a) qwen2-0.5b whole: 30 steps at 4 x 4096 with remat, then one
+    profiled step, one step counted by dtype and one without remat."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = configs.get(TRAIN_ARCH)
+    opt_cfg = adamw.OptConfig(**TRAIN_OPT)
+    data = DataConfig(seed, "lm")
+    log(f"[train] (a) {cfg.name}: B x S = {TRAIN_B} x {TRAIN_S} (TRAIN_4K's length; its global "
+        f"batch of {TRAIN_GLOBAL_BATCH} cut to {TRAIN_B}: its float32 logits alone would be "
+        f"{TRAIN_GLOBAL_BATCH * TRAIN_S * cfg.vocab_size * 4 / 1e9:.0f} GB)")
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, seed, LM_DEV)
+    state = steps.init_train_state(model, opt_cfg)
+    step_fn = steps.make_train_step(cfg, opt_cfg, remat=True)
+    state, losses, norms, times = run_train_steps(model, state, step_fn, cfg, data, 0,
+                                                  TRAIN_STEPS, TRAIN_B, TRAIN_S)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"train (a): loss did not fall: {losses}")
+    step_ms = float(np.median(times[2:]))
+    n_params = sum(p.numel() for p in model.parameters())
+
+    batch = make_batch(cfg, data, TRAIN_STEPS, TRAIN_B, TRAIN_S, LM_DEV)
+    prof = profile_window(lambda: step_fn(model, state, batch), top=10)
+    # Autograd runs the backward on its own thread, outside the host's
+    # `lm.backward` range: its device time is the rest of the step's.
+    ranges = prof["layers_device_ms"]
+    prof["backward_device_ms_derived"] = round(
+        prof["device_busy_ms"] - ranges.get("lm.loss", 0.0) - ranges.get("lm.optim", 0.0), 3)
+    with DtypeFlops() as fc:
+        step_fn(model, state, batch)
+    flops = dict(fc.counts)
+    ops_ms = sum(f / PEAK_FLOP_PER_S[dt] for dt, f in flops.items()) * 1e3
+    state_bytes = train_state_bytes(state)
+    bytes_ms = 2 * state_bytes / HBM_BYTES_PER_S * 1e3
+    no_remat_fn = steps.make_train_step(cfg, opt_cfg, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, _, nr_times = run_train_steps(model, state, no_remat_fn, cfg, data, TRAIN_STEPS, 2,
+                                        TRAIN_B, TRAIN_S)
+    nr_peak = torch.cuda.max_memory_allocated()
+    out = dict(model=cfg.name, params=n_params, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+               losses=losses, grad_norms=norms, step_ms=times, median_step_ms=step_ms,
+               tokens_per_s=TRAIN_B * TRAIN_S / step_ms * 1e3, peak_gib=peak / 2**30,
+               loss_first5=first, loss_last5=last, flops_by_dtype=flops,
+               bound_ms=max(ops_ms, bytes_ms), bound_by=bound_name(bytes_ms, ops_ms),
+               ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, state_bytes=state_bytes,
+               no_remat_step_ms=nr_times[-1], no_remat_peak_gib=nr_peak / 2**30, profile=prof)
+    log(f"[train] (a) {cfg.name} ({n_params / 1e6:.1f} M parameters), {TRAIN_STEPS} steps of "
+        f"AdamW with remat: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 {first:.4f}, "
+        f"last 5 {last:.4f}); median step (steps 3-{TRAIN_STEPS}) {step_ms:.2f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s; peak {peak / 2**30:.2f} GiB; bound "
+        f"{out['bound_ms']:.2f} ms ({out['bound_by']}: {json.dumps(flops)} FLOP at bf16 "
+        f"{BF16_FLOP_PER_S:.3g} and float32 {FP32_FLOP_PER_S:.3g} FLOP/s, TF32 off); "
+        f"remat=False: {nr_times[-1]:.2f} ms, peak {nr_peak / 2**30:.2f} GiB")
+    log("[train] (a) profile of one step: " + json.dumps(prof))
+    log("[train] (a) " + json.dumps({k: v for k, v in out.items() if k != "profile"}))
+    del model, state, step_fn, no_remat_fn
+    return out
+
+
+def train_full_width(seed: int) -> dict:
+    """(b) the other nine configs at full width, depth cut as in phase 16
+    (d): two steps each at 2 x 1024."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.OptConfig(**TRAIN_OPT)
+    out = {}
+    for name, base in configs.ARCHS.items():
+        if name == TRAIN_ARCH:
+            continue
+        cfg = dataclasses.replace(base, num_layers=LM_DEPTH.get(name, 2))
+        if name.startswith("llama4"):
+            # 128 experts x 3 x 5120 x 8192 = 16.1 B parameters in one MoE
+            # layer, 258 GB at 16 B each (bf16 weight and gradient, float32
+            # master, mu, nu): cut to 4 experts, top-1 as before.
+            log(f"[train] (b) {name}: experts cut from {cfg.num_experts} to "
+                f"{LLAMA4_TRAIN_EXPERTS} (top-{cfg.top_k}) to fit one card")
+            cfg = dataclasses.replace(cfg, num_experts=LLAMA4_TRAIN_EXPERTS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = M.init_params(cfg, seed, LM_DEV)
+        state = steps.init_train_state(model, opt_cfg)
+        state, losses, norms, times = run_train_steps(
+            model, state, steps.make_train_step(cfg, opt_cfg, remat=True), cfg,
+            DataConfig(seed, "lm"), 0, 2, TRAIN_SMALL_B, TRAIN_SMALL_S)
+        out[name] = dict(layers=cfg.num_layers, experts=cfg.num_experts,
+                         params=sum(p.numel() for p in model.parameters()), losses=losses,
+                         grad_norms=norms, step_ms=times,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         seconds=time.perf_counter() - t)
+        log(f"[train] (b) {name} at full width, {cfg.num_layers} layers, "
+            f"{TRAIN_SMALL_B} x {TRAIN_SMALL_S}: {json.dumps(out[name])}")
+        del model, state
+    return out
+
+
+def _tree_close(tag: str, got: dict, want: dict, frac: float, floor: float,
+                skip: dict) -> float:
+    """Every leaf of `got` within frac x max(the leaf's max |want|, floor x
+    the largest |want|), leaving out the rows that `skip` names (a leaf's
+    boolean mask over its first axis); returns the largest error over its
+    scale."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        keep = ~skip.get(k, torch.zeros(w.shape[:1], dtype=torch.bool))
+        if not keep.any():
+            continue
+        w = w[keep].float()
+        scale = max(float(w.abs().max()), floor * top)
+        err = float((got[k].cpu()[keep].float() - w).abs().max())
+        worst = max(worst, err / scale)
+        if err > frac * scale:
+            raise AssertionError(f"{tag}: {k} differs by {err} (scale {scale})")
+    return worst
+
+
+def flipped_expert_rows(model, diffs: list, got: list, want: list) -> dict:
+    """The routed experts' leaves (E first) masked at every expert that a
+    token whose choices differ picked on either device: that token's
+    gradient reaches those rows on one side only."""
+    picked = torch.zeros(model.cfg.num_experts, dtype=torch.bool)
+    for (same, _, _), (eg, _), (ew, _) in zip(diffs, got, want, strict=True):
+        for e in (eg.cpu(), ew.cpu()):
+            picked[e[~same].reshape(-1)] = True
+    return {k: picked for k, _ in model.named_parameters()
+            if re.search(r"\.moe\.w[igo]$", k)}
+
+
+def train_card_vs_cpu(seed: int) -> dict:
+    """(c) all ten configs at reduced width: one train step from the same
+    parameters and batch on the card and on the CPU.  A route may differ
+    only at a near tie (LM_MARGIN, as phase 16 (e)), and for at most
+    TRAIN_MAX_FLIPS (token, routing call) pairs; the experts such a token
+    picked on either side are then left out of the comparison of mu, nu,
+    master and params, and every other leaf is held all the same."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.OptConfig(**TRAIN_OPT)
+    out = {}
+    for name, base in configs.ARCHS.items():
+        cfg = no_overflow(base.reduced())
+        card = M.init_params(cfg, seed, LM_DEV)
+        cpu = M.LMModel(cfg, None, "cpu")
+        cpu.load_state_dict(card.state_dict())
+        batch = make_batch(cfg, DataConfig(seed, "lm"), 0, 2, 16, LM_DEV)
+        runs = []
+        for model, b in ((card, batch), (cpu, {k: v.cpu() for k, v in batch.items()})):
+            st = steps.init_train_state(model, opt_cfg)
+            with RouteLog() as rl:
+                st, m = steps.make_train_step(cfg, opt_cfg, remat=True)(model, st, b)
+            runs.append((st, {k: float(v) for k, v in m.items()}, rl.calls))
+        (sg, mg, rg), (sw, mw, rw) = runs
+        diffs = route_diff(rg, rw, cfg.top_k) if cfg.num_experts else []
+        flipped = sum(int((~same).sum()) for same, _, _ in diffs)
+        for same, margin, _ in diffs:
+            if (~same & (margin > LM_MARGIN)).any():
+                raise AssertionError(f"train (c) {name}: a route differs at a margin "
+                                     f"{float(margin[~same].max())} > {LM_MARGIN}")
+        if flipped > TRAIN_MAX_FLIPS:
+            raise AssertionError(f"train (c) {name}: {flipped} routes differ "
+                                 f"(> {TRAIN_MAX_FLIPS})")
+        skip = flipped_expert_rows(cpu, diffs, rg, rw) if flipped else {}
+        res = dict(loss_diff=abs(mg["loss"] - mw["loss"]), routes_flipped=flipped,
+                   experts_left_out=int(next(iter(skip.values())).sum()) if skip else 0,
+                   grad_norm_rel=abs(mg["grad_norm"] - mw["grad_norm"]) / mw["grad_norm"])
+        if res["loss_diff"] > TRAIN_LOSS_TOL or mg["lr"] != mw["lr"] or (
+                not flipped and res["grad_norm_rel"] > TRAIN_GRAD_FRAC):
+            raise AssertionError(f"train (c) {name}: {res}, lr {mg['lr']} vs {mw['lr']}")
+        o_g, o_w = sg.opt, sw.opt
+        res["mu"] = _tree_close(f"train (c) {name} mu", o_g.mu, o_w.mu, TRAIN_GRAD_FRAC,
+                                TRAIN_GRAD_FLOOR, skip)
+        res["nu"] = _tree_close(f"train (c) {name} nu", o_g.nu, o_w.nu,
+                                2.1 * TRAIN_GRAD_FRAC, TRAIN_GRAD_FLOOR ** 2, skip)
+        lr = mw["lr"]
+        top = max(float(w.abs().max()) for w in o_w.mu.values())
+        for k, want in o_w.master.items():
+            keep = ~skip.get(k, torch.zeros(want.shape[:1], dtype=torch.bool))
+            want, mu = want[keep], o_w.mu[k][keep]
+            got, p_want = o_g.master[k].cpu()[keep], sw.params[k][keep].float()
+            d = (got - want).abs()
+            sure = mu.abs() > TRAIN_GRAD_FRAC * max(float(mu.abs().max()),
+                                                    TRAIN_GRAD_FLOOR * top)
+            dp = (sg.params[k].cpu()[keep].float() - p_want).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(p_want.abs().clamp_min(1e-30))) - 7)
+            if float(d.max()) > 2 * lr * 1.001 or bool(
+                    (d[sure] > 1e-6 * want[sure].abs() + 1e-9).any()) or bool(
+                    (dp > 2 * lr * 1.001 + ulp).any()):
+                raise AssertionError(f"train (c) {name}: master/params {k} differ by "
+                                     f"{float(d.max())} (lr {lr})")
+        out[name] = res
+    log(f"[train] (c) reduced widths, one step card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def naive_attention(q, k, v, causal: bool):
+    """Plain attention in the inputs' dtype: (B,T,H,D) x (B,S,KV,D) x (B,S,KV,Dv)."""
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    sc = torch.einsum('bthd,bshd->bhts', q, k) * q.shape[-1] ** -0.5
+    if causal:
+        t, s = sc.shape[-2:]
+        sc = sc.masked_fill(torch.ones(t, s, dtype=torch.bool, device=q.device).triu(1),
+                            float("-inf"))
+    return torch.einsum('bhts,bshd->bthd', torch.softmax(sc, dim=-1), v)
+
+
+def train_flash_backward(seed: int) -> dict:
+    """(d) the flash backward on the card in bf16 against the autograd of a
+    float64 naive attention on the same values; and the forward plus
+    backward of one qwen2 layer's attention at 4 x 4096, timed."""
+    from repro_torch.models.attention import flash_attention
+    gen = torch.Generator(device=LM_DEV).manual_seed(seed + 17)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=LM_DEV).to(torch.bfloat16)
+    out = {}
+    for tag, (b, s, h, kv, dq, dv, causal) in FLASH_CASES.items():
+        q, k, v, do = rnd(b, s, h, dq), rnd(b, s, kv, dq), rnd(b, s, kv, dv), rnd(b, s, h, dv)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*leaves, causal), leaves, do)
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(naive_attention(*leaves, causal), leaves, do.double())
+        errs = {n: float((g.double() - w).abs().max() / w.abs().max())
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        if max(errs.values()) > FLASH_BWD_BOUND:
+            raise AssertionError(f"train (d) {tag}: flash backward errors {errs} > "
+                                 f"{FLASH_BWD_BOUND}")
+        out[tag] = errs
+        del q, k, v, do, leaves, got, want
+    q, k, v = (rnd(TRAIN_B, TRAIN_S, n, 64).requires_grad_() for n in (14, 2, 2))
+    do = rnd(TRAIN_B, TRAIN_S, 14, 64)
+    fwd_ms = event_ms(lambda: flash_attention(q, k, v, True), 3)
+    o = flash_attention(q, k, v, True)
+    bwd_ms = event_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), 3)
+    out["qwen2_layer_4x4096"] = dict(forward_ms=fwd_ms, backward_ms=bwd_ms)
+    log(f"[train] (d) flash backward in bf16 vs float64 naive attention, max |err| / max |g| "
+        f"(bound {FLASH_BWD_BOUND}): {json.dumps(out)}")
+    return out
+
+
+def train_determinism_and_restart(seed: int) -> dict:
+    """(e) three steps twice from one state, equal bits (qwen2-0.5b whole at
+    1 x 4096; deepseek-v2-lite-16b with two layers and zamba2-7b with six at
+    full width, 2 x 1024: the MoE dispatch, Mamba2's scans); ten steps of
+    reduced qwen2 with a failure injected at step 6 under RestartSupervisor
+    and CheckpointManager, equal to the uninterrupted run bit for bit."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import failures
+    opt_cfg = adamw.OptConfig(**TRAIN_OPT)
+    data = DataConfig(seed, "lm")
+
+    def same(tag, a, b):
+        for part in ("params", "mu", "nu", "master"):
+            ta = a.params if part == "params" else getattr(a.opt, part)
+            tb = b.params if part == "params" else getattr(b.opt, part)
+            for k in ta:
+                if not torch.equal(ta[k].view(torch.uint8), tb[k].view(torch.uint8)):
+                    raise AssertionError(f"{tag}: {part} {k} differs")
+
+    host = lambda st: steps.TrainState(
+        {k: v.cpu() for k, v in st.params.items()},
+        adamw.OptState(*({k: v.cpu() for k, v in t.items()} for t in st.opt[:3]),
+                       st.opt.count.cpu()), st.step.cpu())
+    out = {}
+    for name, depth, b, s in ((TRAIN_ARCH, None, 1, 4096),
+                              ("deepseek-v2-lite-16b", 2, TRAIN_SMALL_B, TRAIN_SMALL_S),
+                              ("zamba2-7b", LM_DEPTH["zamba2-7b"], TRAIN_SMALL_B,
+                               TRAIN_SMALL_S)):
+        cfg = configs.get(name)
+        cfg = dataclasses.replace(cfg, num_layers=depth) if depth else cfg
+        model = M.init_params(cfg, seed, LM_DEV)
+        start = steps.clone_state(steps.init_train_state(model, opt_cfg))
+        step_fn = steps.make_train_step(cfg, opt_cfg, remat=True)
+        ends, losses = [], []
+        for _ in range(2):
+            st = steps.bind(model, steps.clone_state(start))
+            st, ls, _, _ = run_train_steps(model, st, step_fn, cfg, data, 0, 3, b, s)
+            ends.append(host(st))
+            losses.append(ls)
+        same(f"train (e) {name} twice", *ends)
+        if losses[0] != losses[1]:
+            raise AssertionError(f"train (e) {name}: losses {losses}")
+        out[name] = dict(steps=3, batch=b, seq=s, losses=losses[0], equal_bits=True)
+        del model, start, ends, st
+        torch.cuda.empty_cache()
+
+    cfg = configs.get(TRAIN_ARCH).reduced(layers=2, d_model=128, vocab=512)
+    step_fn = steps.make_train_step(cfg, opt_cfg, remat=False)
+    model = M.init_params(cfg, seed, LM_DEV)
+    fresh = steps.clone_state(steps.init_train_state(model, opt_cfg))
+    st = steps.bind(model, steps.clone_state(fresh))
+    for i in range(10):
+        st, _ = step_fn(model, st, make_batch(cfg, data, i, 8, 128, LM_DEV))
+    ref = steps.clone_state(st)
+    with tempfile.TemporaryDirectory(prefix="train_restart_") as tmp:
+        mgr = ckpt.CheckpointManager(tmp, keep=3, async_save=False)
+        template = steps.bind(model, steps.clone_state(fresh))
+        mgr.save(template, 0)
+        crashed = []
+
+        def segment(start_step: int, ndev: int) -> int:
+            restored, _ = mgr.restore(template, step=start_step)
+            state = steps.bind(model, restored)
+            for i in range(start_step, 10):
+                if i == 6 and not crashed:
+                    crashed.append(i)
+                    raise failures.TrainingFailure("injected device loss")
+                state, _ = step_fn(model, state, make_batch(cfg, data, i, 8, 128, LM_DEV))
+                mgr.save(state, i + 1)
+            return 10
+
+        sup = failures.RestartSupervisor(lambda: ckpt.latest_step(tmp), max_restarts=2)
+        report = sup.run(segment, total_steps=10, num_devices=1)
+        final, step = mgr.restore(template)
+    if report.restarts != 1 or report.completed_steps != 10 or step != 10:
+        raise AssertionError(f"train (e) restart: {report}, restored step {step}")
+    same("train (e) restart", final, ref)
+    out["restart"] = dict(restarts=report.restarts, resumed_from=report.resumed_from,
+                          equal_bits=True)
+    log(f"[train] (e) determinism and restart on the card: {json.dumps(out)}")
+    return out
+
+
+def phase_train(seed: int) -> dict:
+    """17. train: the LM substrate's training path (no kernel of the three)."""
+    from repro_torch.kernels import ops
+    matmul = torch.backends.cuda.matmul
+    reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False    # as phase 16
+    ops.reset_launches()
+    out = {"whole": train_whole(seed)}
+    torch.cuda.empty_cache()
+    out["full_width"] = train_full_width(seed)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(seed)
+    out["flash_backward"] = train_flash_backward(seed)
+    torch.cuda.empty_cache()
+    out["determinism"] = train_determinism_and_restart(seed)
+    if any(ops.launches.values()):
+        raise AssertionError(f"train: the training path launched {ops.launches}")
+    out["launches"] = dict(ops.launches)
+    matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -2359,7 +2836,7 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm")
+          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train")
 
 
 def main() -> int:
@@ -2415,6 +2892,8 @@ def main() -> int:
             run[name] = phase_sweep2d(args.seed, run["sweep"])
         elif name == "lm":
             run[name] = phase_lm(args.seed)
+        elif name == "train":
+            run[name] = phase_train(args.seed)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -2439,6 +2918,8 @@ def main() -> int:
         k["dist_launches"] = run["dist"]["launches"][k["name"]]
         k["sweep2d_launches"] = run["sweep2d"]["launches"][k["name"]]
     kernels[1]["dist_emulated_launches"] = run["dist"]["emulated_launches"]["m2l_separable"]
+    for k in kernels:      # the LM training path launches none of them
+        k["train_launches"] = run["train"]["launches"].get(k["name"], 0)
     for k in kernels:
         log(f"[kernels] {k['name']}: {k['ms']:.4f} ms against a {k['bound_ms']:.4f} ms bound "
             f"({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

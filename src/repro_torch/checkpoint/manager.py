@@ -14,7 +14,11 @@ differ from the JAX package's, the manifest says how each leaf is stored
 (`"stored"`): the port's `SimState.step` is a host int, saved as a 0-d int64
 array (the JAX package saves an int32 array), its `dropped` an int64 tensor
 (int32 there).  A restore converts each array to the template leaf's type,
-dtype and device.
+dtype and device.  numpy has no bfloat16: a bf16 tensor is stored as its
+int16 bits (`"stored": "bfloat16 bits"`) and restored bit for bit; the JAX
+package stores bf16 as uint16 bits, which restore the same way.  A None
+leaf (an `OptState` without master weights) holds nothing, as a JAX tree's
+None does.
 
 Properties: atomic publish (write a temporary directory, fsync, rename);
 async mode copies to the host at once and writes on a background thread;
@@ -46,7 +50,7 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()):
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (str(i),))
-    else:
+    elif tree is not None:
         yield _SEP.join(path), tree
 
 
@@ -59,6 +63,8 @@ def _rebuild(template: Any, fetch, path: Tuple[str, ...] = ()):
     if isinstance(template, (tuple, list)):
         return type(template)(_rebuild(v, fetch, path + (str(i),))
                               for i, v in enumerate(template))
+    if template is None:
+        return None
     return fetch(_SEP.join(path), template)
 
 
@@ -66,7 +72,10 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a numpy array that no later write to the leaf can change,
     and how it is stored."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy(), "tensor"
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy(), "bfloat16 bits"
+        return host.numpy(), "tensor"
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return np.array(leaf, np.int64), "host int"
     return np.array(leaf), "numpy"
@@ -114,6 +123,9 @@ def _restore_leaf(arr: np.ndarray, leaf, key: str):
     if tuple(arr.shape) != shape:
         raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {shape}")
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16 and arr.dtype in (np.int16, np.uint16):
+            bits = torch.from_numpy(np.array(arr).view(np.int16))
+            return bits.view(torch.bfloat16).to(leaf.device)
         return torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype)
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return int(arr)

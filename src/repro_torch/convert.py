@@ -173,11 +173,10 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def lm_params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"):
-    """An `LMModel` of `cfg` on `device` holding the JAX parameter tree's
-    leaves (numpy arrays, bfloat16 as ml_dtypes'), bit for bit."""
-    from repro_torch.models.model import STACKS, LMModel
-    dev = _device.resolve(device)
+def _flat_named(tree: dict) -> dict:
+    """A JAX LM tree's leaves keyed by the port's parameter names (stacked
+    leaves split into one name per layer)."""
+    from repro_torch.models.model import STACKS
     flat = {}
     for path, leaf in _leaves(tree):
         leaf = np.asarray(leaf)
@@ -186,26 +185,15 @@ def lm_params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"):
                 flat[".".join((path[0], str(i)) + path[1:])] = leaf[i]
         else:
             flat[".".join(path)] = leaf
-    model = LMModel(cfg, None, dev)
-    params = dict(model.named_parameters())
-    if set(flat) != set(params):
-        raise KeyError(f"lm_params_from_jax: leaves {sorted(set(flat) ^ set(params))} "
-                       "are not in both trees")
-    for name, p in params.items():
-        t = _to_torch(flat[name])
-        if t.shape != p.shape or t.dtype != p.dtype:
-            raise ValueError(f"lm_params_from_jax: {name} is {tuple(t.shape)} {t.dtype}, "
-                             f"the model's {tuple(p.shape)} {p.dtype}")
-        p.data.copy_(t)
-    return model
+    return flat
 
 
-def lm_params_to_numpy(model) -> dict:
-    """The model's parameters as the JAX tree: nested dicts of numpy arrays,
+def _stack_named(named) -> dict:
+    """(name, tensor) pairs as the JAX tree: nested dicts of numpy arrays,
     the layer stacks stacked along a leading axis."""
     from repro_torch.models.model import STACKS
     stacks, out = {}, {}
-    for name, p in model.named_parameters():
+    for name, p in named:
         path = tuple(name.split("."))
         if path[0] in STACKS:
             stacks.setdefault((path[0],) + path[2:], []).append(_to_numpy(p))
@@ -214,6 +202,83 @@ def lm_params_to_numpy(model) -> dict:
     for path, rows in stacks.items():
         _set(out, path, np.stack(rows))
     return out
+
+
+def lm_params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"):
+    """An `LMModel` of `cfg` on `device` holding the JAX parameter tree's
+    leaves (numpy arrays, bfloat16 as ml_dtypes'), bit for bit."""
+    from repro_torch.models.model import LMModel
+    dev = _device.resolve(device)
+    flat = _flat_named(tree)
+    model = LMModel(cfg, None, dev)
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise KeyError(f"lm_params_from_jax: leaves {sorted(set(flat) ^ set(params))} "
+                       "are not in both trees")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = _to_torch(flat[name])
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"lm_params_from_jax: {name} is {tuple(t.shape)} {t.dtype}, "
+                                 f"the model's {tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    return model
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The model's parameters as the JAX tree: nested dicts of numpy arrays,
+    the layer stacks stacked along a leading axis."""
+    return _stack_named(model.named_parameters())
+
+
+# A JAX `TrainState(params, opt=OptState(mu, nu, master, count), step)` with
+# numpy leaves (`jax.tree.map(np.asarray, state)`) and the port's
+# (`launch.steps.TrainState`, the optimizer's leaves keyed by parameter
+# name) cross leaf for leaf and bit for bit; on the way back the state is
+# plain dicts of the same trees.
+
+
+def train_state_from_jax(state, cfg, device: str | torch.device = "cuda"):
+    """(model, TrainState) on `device` from a JAX TrainState's numpy leaves;
+    the state's params are the model's parameters."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+    dev = _device.resolve(device)
+    model = lm_params_from_jax(state.params, cfg, dev)
+    params = dict(model.named_parameters())
+
+    def named(tree):
+        if tree is None:
+            return None
+        flat = {k: _to_torch(v).to(dev) for k, v in _flat_named(tree).items()}
+        if set(flat) != set(params):
+            raise KeyError(f"train_state_from_jax: {sorted(set(flat) ^ set(params))}")
+        return flat
+
+    scalar = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=dev)
+    opt = state.opt
+    return model, TrainState(params=params,
+                             opt=OptState(named(opt.mu), named(opt.nu), named(opt.master),
+                                          scalar(opt.count)),
+                             step=scalar(state.step))
+
+
+def train_state_to_numpy(state) -> dict:
+    """{"params", "opt": {"mu", "nu", "master", "count"}, "step"} as the JAX
+    trees and int32 scalars."""
+    tree = lambda named: None if named is None else _stack_named(named.items())
+    scalar = lambda t: np.asarray(int(t), np.int32)
+    o = state.opt
+    return {"params": tree(state.params),
+            "opt": {"mu": tree(o.mu), "nu": tree(o.nu), "master": tree(o.master),
+                    "count": scalar(o.count)},
+            "step": scalar(state.step)}
+
+
+def batch_from_jax(batch: dict, device: str | torch.device = "cuda") -> dict:
+    """A JAX `make_batch` batch (numpy leaves) as the port's tensors."""
+    dev = _device.resolve(device)
+    return {k: _to_torch(np.asarray(v)).to(dev) for k, v in batch.items()}
 
 
 def lm_cache_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:

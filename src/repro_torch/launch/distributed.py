@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, device as _device
 from repro_torch.core.engine import EngineConfig, PlasticityEngine
 from repro_torch.core.msp import MSPConfig
 from repro_torch.core.traversal import FMMConfig
@@ -203,14 +203,16 @@ def _rank_main(rank: int, world: int, init_file: str, jobs: Sequence, out_dir: s
         dist.destroy_process_group()
 
 
-def run_ranks(world: int, jobs: Sequence, device: str = "cpu", timeout_s: float = 300.0,
+def run_ranks(world: int, jobs: Sequence, device: str = "cuda", timeout_s: float = 300.0,
               collective_timeout_s: float = 60.0, ensemble: Optional[int] = None) -> List[dict]:
     """Run `jobs` on `world` spawned ranks; returns rank 0's result of each.
     ensemble None: every job a `Job` on a data group of all ranks
     (`run_job`); ensemble=e: the 2-D layout of e x (world/e) ranks, each job
     run by `job.run(groups, device)`.  Raises if a rank fails (a collective
     that waits longer than collective_timeout_s fails it), and stops every
-    rank and raises if they are not done within timeout_s."""
+    rank and raises if they are not done within timeout_s.  Runs on the
+    card unless device="cpu" (gloo) is asked for."""
+    _device.resolve(device)
     if ensemble is not None and world % ensemble:
         raise ValueError(f"the ensemble axis size {ensemble} must divide the world size {world}")
     import multiprocessing as mp

@@ -8,7 +8,8 @@ caches (the port's counterpart of `examples/lm_serve.py`).
 then one decode step per further token.  It times each stage on the
 device's clock (CUDA events on the card, the host clock on the CPU).
 `score` runs the same steps on a given continuation (teacher forcing), for
-holding the decode path against `forward_train`.
+holding the decode path against `forward_train`.  Both run under
+`torch.inference_mode()`: serving builds no autograd graph.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ def _pick(logits: torch.Tensor, temperature: float, gen: Optional[torch.Generato
     return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
 
 
+@torch.inference_mode()
 def generate(model: M.LMModel, prompts: torch.Tensor, new_tokens: int,
              temperature: float = 0.0, gen: Optional[torch.Generator] = None) -> Generated:
     """Prefill `prompts` (B, S) into caches of S + new_tokens positions and
@@ -98,6 +100,7 @@ def generate(model: M.LMModel, prompts: torch.Tensor, new_tokens: int,
                      [clock.ms(a, b) for a, b in zip(marks, marks[1:])], bool(finite))
 
 
+@torch.inference_mode()
 def score(model: M.LMModel, tokens: torch.Tensor, prompt_len: int) -> list:
     """Prefill tokens[:, :prompt_len], then decode each later token through
     the caches: the float32 logits (B, V) of the 1 + T - prompt_len steps,

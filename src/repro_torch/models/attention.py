@@ -1,5 +1,5 @@
 """Attention: GQA (with qk-norm / qkv-bias variants) and MLA (DeepSeek)
-(port of `repro.models.attention`, forward only).
+(port of `repro.models.attention`).
 
 Three entry modes share one code path:
   * train/prefill: full-sequence chunked-flash attention (a streaming
@@ -16,7 +16,8 @@ so each product is exact and the sum is float32.  Masked scores are -1e30
 (not -inf), so a fully masked row gives no NaN.
 
 Caches are updated in place (prefill writes positions [0, T), decode writes
-`cache_pos`) and returned.
+`cache_pos`) and returned.  Only the chunked flash attention has a backward
+(training); decode and the absorbed MLA decode serve under inference mode.
 """
 from __future__ import annotations
 
@@ -37,41 +38,43 @@ MASKED = -1e30
 # Chunked flash attention
 # ---------------------------------------------------------------------------
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, q_offset: int = 0,
-                    q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
-    """q: (B,T,H,D), k: (B,S,KV,D), v: (B,S,KV,Dv), H % KV == 0 -> (B,T,H,Dv).
+def _live(causal: bool, q_offset: int, qi: int, q_chunk: int, ki: int, kv_chunk: int) -> bool:
+    """Whether kv block ki holds a key that some query of q block qi sees.
+    A block that none sees adds exactly nothing, in the forward (p = 0 after
+    block 0 has set every row's max) and in the backward (p = 0), so the
+    loops skip it."""
+    return not causal or ki * kv_chunk <= q_offset + (qi + 1) * q_chunk - 1
 
-    The reference's streaming-softmax forward: for each block of q_chunk
+
+def _flash_fwd_core(q, k, v, causal: bool, q_offset: int, q_chunk: int, kv_chunk: int):
+    """The reference's streaming-softmax forward: for each block of q_chunk
     queries, a running max m, sum l and output o over the kv_chunk blocks.
-    Query i sits at position q_offset + i for the causal mask.
-    """
+    Query i sits at position q_offset + i for the causal mask.  Returns
+    (o (B,T,H,Dv) in q's dtype, lse (B,KV,G,T) float32)."""
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]                      # may differ from d (MLA)
     g = h // kv
     scale = d ** -0.5
-    q_chunk = min(q_chunk, t)
-    kv_chunk = min(kv_chunk, s)
-    if t % q_chunk or s % kv_chunk:
-        raise ValueError(f"flash_attention: chunks ({q_chunk}, {kv_chunk}) do not divide "
-                         f"the lengths ({t}, {s})")
     nq, nkv = t // q_chunk, s // kv_chunk
     dev = q.device
+    acc = torch.promote_types(q.dtype, torch.float32)   # float64 only under gradcheck
 
     qr = q.reshape(b, nq, q_chunk, kv, g, d)
     kr = k.reshape(b, nkv, kv_chunk, kv, d)
     vr = v.reshape(b, nkv, kv_chunk, kv, dv)
-    blocks = []
+    blocks, lses = [], []
     for qi in range(nq):
-        qb = qr[:, qi].float()                                   # (B, qc, KV, G, D)
+        qb = qr[:, qi].to(acc)                                   # (B, qc, KV, G, D)
         q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((b, kv, g, q_chunk), MASKED, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, kv, g, q_chunk), dtype=torch.float32, device=dev)
-        o = torch.zeros((b, kv, g, q_chunk, dv), dtype=torch.float32, device=dev)
+        m = torch.full((b, kv, g, q_chunk), MASKED, dtype=acc, device=dev)
+        l = torch.zeros((b, kv, g, q_chunk), dtype=acc, device=dev)
+        o = torch.zeros((b, kv, g, q_chunk, dv), dtype=acc, device=dev)
         for ki in range(nkv):
+            if not _live(causal, q_offset, qi, q_chunk, ki, kv_chunk):
+                continue
             vb = vr[:, ki]
-            sc = torch.einsum('bqkgd,bskd->bkgqs', qb, kr[:, ki].float()) * scale
+            sc = torch.einsum('bqkgd,bskd->bkgqs', qb, kr[:, ki].to(acc)) * scale
             if causal:
                 k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
                 sc = torch.where(q_pos[:, None] >= k_pos[None, :], sc, MASKED)
@@ -79,13 +82,99 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum('bkgqs,bskd->bkgqd', p.to(vb.dtype).float(), vb.float())
+            pv = torch.einsum('bkgqs,bskd->bkgqd', p.to(vb.dtype).to(acc), vb.to(acc))
             o = o * corr[..., None] + pv
             m = m_new
         o = o / torch.clamp_min(l, 1e-30)[..., None]
+        lses.append(m + torch.log(torch.clamp_min(l, 1e-30)))   # (B, KV, G, qc)
         # (B, KV, G, qc, Dv) -> (B, qc, KV*G, Dv)
         blocks.append(o.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, dv))
-    return torch.cat(blocks, dim=1).to(q.dtype)
+    return torch.cat(blocks, dim=1).to(q.dtype), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal: bool, q_offset: int, q_chunk: int,
+               kv_chunk: int):
+    """The reference's `_flash_bwd`: D = rowsum(do * o); an outer loop over
+    kv blocks and an inner one over q blocks; p recomputed as exp(s - lse)
+    in float32 (not rounded to the value dtype, as the forward's is);
+    ds = p (dp - D) scale; dq accumulated per q block in float32; dq, dk, dv
+    cast back to the inputs' dtypes."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kv
+    scale = d ** -0.5
+    nq, nkv = t // q_chunk, s // kv_chunk
+    dev = q.device
+    acc = torch.promote_types(q.dtype, torch.float32)
+
+    qr = q.reshape(b, nq, q_chunk, kv, g, d)
+    kr = k.reshape(b, nkv, kv_chunk, kv, d)
+    vr = v.reshape(b, nkv, kv_chunk, kv, dv)
+    dor = do.reshape(b, nq, q_chunk, kv, g, dv)
+    lser = lse.reshape(b, kv, g, nq, q_chunk)
+    # D_i = rowsum(do * o): (B, KV, G, nq, qc)
+    dsum = torch.einsum('bthd,bthd->bht', do.to(acc), o.to(acc)).reshape(b, kv, g, nq, q_chunk)
+
+    dq = [torch.zeros((b, q_chunk, kv, g, d), dtype=acc, device=dev) for _ in range(nq)]
+    dks, dvs = [], []
+    for ki in range(nkv):
+        kb, vb = kr[:, ki].to(acc), vr[:, ki].to(acc)
+        k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+        dk_j = torch.zeros((b, kv_chunk, kv, d), dtype=acc, device=dev)
+        dv_j = torch.zeros((b, kv_chunk, kv, dv), dtype=acc, device=dev)
+        for qi in range(nq):
+            if not _live(causal, q_offset, qi, q_chunk, ki, kv_chunk):
+                continue
+            qb, dob = qr[:, qi].to(acc), dor[:, qi].to(acc)
+            sc = torch.einsum('bqkgd,bskd->bkgqs', qb, kb) * scale
+            if causal:
+                q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+                sc = torch.where(q_pos[:, None] >= k_pos[None, :], sc, MASKED)
+            p = torch.exp(sc - lser[:, :, :, qi, :, None])             # (B,KV,G,qc,kc)
+            dv_j = dv_j + torch.einsum('bkgqs,bqkgd->bskd', p, dob)
+            dp = torch.einsum('bqkgd,bskd->bkgqs', dob, vb)
+            ds = p * (dp - dsum[:, :, :, qi, :, None]) * scale
+            dk_j = dk_j + torch.einsum('bkgqs,bqkgd->bskd', ds, qb)
+            dq[qi] = dq[qi] + torch.einsum('bkgqs,bskd->bqkgd', ds, kb)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    return (torch.cat(dq, dim=1).reshape(b, t, h, d).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's custom VJP: the forward saves (q, k, v, o, lse) and
+    nothing of size T x S; the backward recomputes each probability block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, q_chunk, kv_chunk):
+        o, lse = _flash_fwd_core(q, k, v, causal, q_offset, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, q_offset, q_chunk, kv_chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        with record_function("lm.attn_bwd"):
+            return _flash_bwd(q, k, v, o, lse, do, *ctx.args) + (None,) * 4
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, q_offset: int = 0,
+                    q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
+    """q: (B,T,H,D), k: (B,S,KV,D), v: (B,S,KV,Dv), H % KV == 0 -> (B,T,H,Dv).
+
+    Memory-lean attention with a flash-2-style backward: training keeps
+    O(B*T*H) residuals (o and the log-sum-exp), not O(B*H*T*S)
+    probabilities."""
+    t, s = q.shape[1], k.shape[1]
+    q_chunk, kv_chunk = min(q_chunk, t), min(kv_chunk, s)
+    if t % q_chunk or s % kv_chunk:
+        raise ValueError(f"flash_attention: chunks ({q_chunk}, {kv_chunk}) do not divide "
+                         f"the lengths ({t}, {s})")
+    return _FlashAttention.apply(q, k, v, causal, q_offset, q_chunk, kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -6,7 +6,9 @@ reference's leaf names (`scale`, `table`, `w`, `b`), so a model's
 `state_dict` keys are the reference tree's paths (`repro_torch.convert`).
 The apply functions take tensors.  bf16 parameters and activations, with
 norms, softmax, RoPE angles and the unembedding in float32, as in the
-reference.
+reference.  Parameters are trainable; `rms_norm`, `embed`, `linear`,
+`unembed` and RoPE take autograd's gradients, and `silu` has its own
+backward (the reference's rounding).
 """
 from __future__ import annotations
 
@@ -39,23 +41,45 @@ def he_init(shape: Sequence[int], gen: Optional[torch.Generator], device,
             draw = torch.randn((j - i,) + tuple(shape[1:]), generator=gen,
                                dtype=torch.float32, device=device)
             out[i:j] = (draw * std).to(dtype)
-    return nn.Parameter(out, requires_grad=False)
+    return nn.Parameter(out)
 
 
 def const_init(shape: Sequence[int], value: float, device,
                dtype=PARAM_DTYPE) -> nn.Parameter:
-    return nn.Parameter(torch.full(tuple(shape), value, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.full(tuple(shape), value, dtype=dtype, device=device))
 
 
 # -- SiLU -------------------------------------------------------------------
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(torch.exp(-x) + 1)
+
+
+class _SiLU(torch.autograd.Function):
+    """JAX differentiates `x * logistic(x)` with logistic's own rule,
+    ans * (1 - ans), on the rounded logistic `ans`: the cotangent is
+    g * ans + (g * x) * (ans * (1 - ans)), each step rounded to x's dtype.
+    Autograd through the forward's four steps would differentiate the
+    expansion instead."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = _logistic(x)
+        ctx.save_for_backward(x, ans)
+        return x * ans
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ans = ctx.saved_tensors
+        return g * ans + (g * x) * (ans * (1 - ans))
+
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x) as the reference computes it: `jax.nn.silu`'s logistic
     is expanded to 1 / (1 + exp(-x)) by XLA, each step rounded to x's dtype
     (torch's fused `F.silu` rounds once, and differs from it in a third of
     bf16 outputs)."""
-    return x * torch.reciprocal(torch.exp(-x) + 1)
+    return _SiLU.apply(x)
 
 
 # -- RMSNorm ----------------------------------------------------------------
@@ -85,6 +109,8 @@ class Embedding(nn.Module):
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    # Indexing's backward sorts the tokens before it sums their rows, so the
+    # card gives the table's gradient the same bits on every run.
     return table[tokens].to(ACT_DTYPE)
 
 

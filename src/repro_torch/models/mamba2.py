@@ -13,6 +13,7 @@ Implements the SSD recurrence per head (state (N, P), head dim P):
   token.  Decode is chosen by `cache is not None and T == 1`, so a
   one-token prefill takes the decode branch, as in the reference.
 * Single B/C group (g = 1).
+* Training takes autograd's gradients through the conv and the chunked SSD.
 """
 from __future__ import annotations
 
@@ -103,7 +104,10 @@ def _ssd_chunked(x, dt, a_log, bmat, cmat, d_skip, chunk: int):
     # --- intra-chunk (attention-like, causal): L[t,s] = exp(lcum_t - lcum_s), s <= t
     diff = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]          # (B,NC,Q,Q,H)
     mask = torch.arange(q, device=x.device)[:, None] >= torch.arange(q, device=x.device)
-    lmat = torch.where(mask[:, :, None], torch.exp(diff), 0.0)
+    # exp of -inf above the diagonal gives the reference's zeros, and a zero
+    # gradient there: exp(diff) itself overflows to inf at a long chunk, and
+    # where()'s zero cotangent times inf is NaN.
+    lmat = torch.exp(torch.where(mask[:, :, None], diff, float("-inf")))
     cb = torch.einsum('bcqn,bcsn->bcqs', cr, br)                       # (B,NC,Q,Q), x.dtype
     w_ = cb[..., None].float() * lmat * dtr[:, :, None, :, :]         # (B,NC,Q,Q,H)
     y_intra = torch.einsum('bcqsh,bcshp->bcqhp', w_, xr)

@@ -22,6 +22,13 @@ audio (hubert)      : encoder (bidirectional), input = precomputed frame
 
 The reference's sharding anchors (`repro.sharding.hints`) do nothing without
 a mesh; the single-device port calls nothing in their place.
+
+Training: `forward_train(remat=True)` recomputes each layer in the
+backward (`torch.utils.checkpoint`, the reference's per-layer
+`jax.checkpoint(nothing_saveable)`: each scanned layer, each MoE
+super-layer, each hybrid body); `loss_fn` is the mean cross-entropy.
+Prefill and decode run under `torch.inference_mode()`: serving builds no
+autograd graph.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.models import attention as A
@@ -169,48 +177,67 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
     raise ValueError(f"{cfg.family} has no decode cache")
 
 
-def _run(apply_fn, layers, x, cfg, caches, cache_pos):
+def _unit(body, x, remat: bool):
+    """One remat unit: `body(x) -> x`, recomputed in the backward if remat."""
+    return checkpoint(body, x, use_reentrant=False) if remat else body(x)
+
+
+def _run(apply_fn, layers, x, cfg, caches, cache_pos, remat=False):
     for i, lp in enumerate(layers):
-        x, _ = apply_fn(lp, x, cfg, caches[i] if caches is not None else None, cache_pos)
+        if caches is not None:
+            x, _ = apply_fn(lp, x, cfg, caches[i], cache_pos)
+        else:
+            x = _unit(lambda h, lp=lp: apply_fn(lp, h, cfg)[0], x, remat)
     return x
 
 
-def _hybrid_stack(model: LMModel, x, cfg, caches=None, cache_pos=None):
+def _hybrid_stack(model: LMModel, x, cfg, caches=None, cache_pos=None, remat=False):
     """Mamba layers with the shared attention block after every k-th layer:
     layer i (i % k == k - 1) is followed by site i // k, with its own cache."""
     k = cfg.shared_attn_every
-    for i, lp in enumerate(model.layers):
-        x, _ = _mamba_layer_apply(lp, x, cfg, caches["layers"][i] if caches else None,
-                                  cache_pos)
+
+    def body(h, i):
+        h, _ = _mamba_layer_apply(model.layers[i], h, cfg,
+                                  caches["layers"][i] if caches else None, cache_pos)
         if i % k == k - 1:
             site = caches["shared_attn"][i // k] if caches else None
-            x, _ = _dense_layer_apply(model.shared_attn, x, cfg, site, cache_pos)
+            h, _ = _dense_layer_apply(model.shared_attn, h, cfg, site, cache_pos)
+        return h
+
+    for i in range(len(model.layers)):
+        x = _unit(lambda h, i=i: body(h, i), x, remat and caches is None)
     return x
 
 
 def backbone(model: LMModel, x: torch.Tensor, caches: Optional[Caches] = None,
-             cache_pos: Optional[int] = None) -> torch.Tensor:
-    """Hidden-states trunk shared by train/prefill/decode."""
+             cache_pos: Optional[int] = None, remat: bool = False) -> torch.Tensor:
+    """Hidden-states trunk shared by train/prefill/decode.  remat (training
+    only, no caches): only the units' inputs are kept for the backward."""
     cfg = model.cfg
     c = (lambda name: caches[name]) if caches is not None else (lambda name: None)
     if cfg.family in ("dense", "vlm", "audio"):
-        x = _run(_dense_layer_apply, model.layers, x, cfg, c("layers"), cache_pos)
+        x = _run(_dense_layer_apply, model.layers, x, cfg, c("layers"), cache_pos, remat)
     elif cfg.family == "moe":
         if cfg.first_dense_layers:
             x = _run(_dense_layer_apply, model.dense_prefix, x, cfg, c("dense_prefix"),
-                     cache_pos)
+                     cache_pos, remat)
         step = cfg.moe_layer_step
-        for s, mp in enumerate(model.layers):
-            # super-layer: (step-1) dense layers then one MoE layer
+
+        def super_layer(h, s):
+            # (step-1) dense layers then one MoE layer
             for j in range(s * (step - 1), (s + 1) * (step - 1)):
                 dc = caches["dense_inter"][j] if caches is not None else None
-                x, _ = _dense_layer_apply(model.dense_inter[j], x, cfg, dc, cache_pos)
+                h, _ = _dense_layer_apply(model.dense_inter[j], h, cfg, dc, cache_pos)
             mc = caches["layers"][s] if caches is not None else None
-            x, _ = _moe_layer_apply(mp, x, cfg, mc, cache_pos)
+            h, _ = _moe_layer_apply(model.layers[s], h, cfg, mc, cache_pos)
+            return h
+
+        for s in range(len(model.layers)):
+            x = _unit(lambda h, s=s: super_layer(h, s), x, remat and caches is None)
     elif cfg.family == "ssm":
-        x = _run(_mamba_layer_apply, model.layers, x, cfg, c("layers"), cache_pos)
+        x = _run(_mamba_layer_apply, model.layers, x, cfg, c("layers"), cache_pos, remat)
     elif cfg.family == "hybrid":
-        x = _hybrid_stack(model, x, cfg, caches, cache_pos)
+        x = _hybrid_stack(model, x, cfg, caches, cache_pos, remat)
     else:
         raise ValueError(cfg.family)
     return model.final_norm(x, cfg.norm_eps)
@@ -233,12 +260,56 @@ def embed_inputs(model: LMModel, inputs: torch.Tensor) -> torch.Tensor:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward_train(model: LMModel, inputs: torch.Tensor) -> torch.Tensor:
-    """-> f32 logits (B, S, V).  The encoder's serve path and the reference
-    the decode path is held against."""
-    return _logits(model, backbone(model, embed_inputs(model, inputs)))
+def forward_train(model: LMModel, inputs: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """-> f32 logits (B, S, V).  The training forward, the encoder's serve
+    path and the reference the decode path is held against."""
+    return _logits(model, backbone(model, embed_inputs(model, inputs), remat=remat))
 
 
+_LOSS_ROWS = 1024      # rows of logits whose softmax temporaries exist at once
+
+
+class _MeanCrossEntropy(torch.autograd.Function):
+    """mean(logsumexp(logits) - gold) over every (B, S) row.  The gold logit
+    is taken with a gather: the reference's iota-mask sum adds zeros to that
+    one value, so both give the same bits.  Temporaries are `_LOSS_ROWS`
+    rows at a time, and the backward writes its (B, S, V) gradient into one
+    buffer: no copy of the logits' size beyond the logits and their
+    gradient (qwen2-0.5b at 4 x 4096: 9.96 GB each)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        flat = logits.reshape(-1, logits.shape[-1])
+        lse = torch.cat([torch.logsumexp(flat[i:i + _LOSS_ROWS], dim=-1)
+                         for i in range(0, flat.shape[0], _LOSS_ROWS)])
+        lab = labels.reshape(-1, 1).long()
+        gold = torch.gather(flat, 1, lab)[:, 0]
+        ctx.save_for_backward(logits, lab, lse)
+        return torch.mean(lse - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, lse = ctx.saved_tensors
+        flat = logits.reshape(-1, logits.shape[-1])
+        w = g / flat.shape[0]
+        grad = torch.empty_like(flat)
+        for i in range(0, flat.shape[0], _LOSS_ROWS):
+            torch.mul(torch.exp(flat[i:i + _LOSS_ROWS] - lse[i:i + _LOSS_ROWS, None]), w,
+                      out=grad[i:i + _LOSS_ROWS])
+        rows = torch.arange(flat.shape[0], device=flat.device)
+        grad[rows, lab[:, 0]] = grad[rows, lab[:, 0]] - w    # one label a row: no accumulation
+        return grad.reshape(logits.shape), None
+
+
+def loss_fn(model: LMModel, inputs: torch.Tensor, labels: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy of `labels` (B, S) under the logits."""
+    logits = forward_train(model, inputs, remat=remat)
+    with record_function("lm.xent"):
+        return _MeanCrossEntropy.apply(logits, labels)
+
+
+@torch.inference_mode()
 def forward_prefill(model: LMModel, inputs: torch.Tensor, caches: Caches
                     ) -> Tuple[torch.Tensor, Caches]:
     """Fill the caches with the prompt; return last-position logits (B, 1, V)."""
@@ -247,6 +318,7 @@ def forward_prefill(model: LMModel, inputs: torch.Tensor, caches: Caches
         return _logits(model, x[:, -1:, :]), caches
 
 
+@torch.inference_mode()
 def forward_decode(model: LMModel, token: torch.Tensor, caches: Caches, cache_pos: int
                    ) -> Tuple[torch.Tensor, Caches]:
     """One decode step.  token: (B, 1) integer (or (B, 1, F) features);

@@ -12,6 +12,8 @@
 * Router softmax and gate renormalisation run in float32.
 * Top-k: a stable descending sort, so on a tie the lower expert index
   comes first, as `jax.lax.top_k` puts it.
+* Gradients reach the router (through the gates), the experts and the
+  shared experts; `load_balancing_loss` is there for a training loop.
 """
 from __future__ import annotations
 
@@ -69,7 +71,6 @@ class Dispatch(NamedTuple):
     rank: torch.Tensor            # (B, S*k) int32: rank within the expert
     keep: torch.Tensor            # (B, S*k) bool: rank < capacity
     slot: torch.Tensor            # (B, S*k) int64: e * C + rank, or E * C (overflow)
-    token_of_slot: torch.Tensor   # (B, E*C) int64: the token in each slot, S if empty
 
 
 def dispatch(expert: torch.Tensor, num_experts: int, cap: int) -> Dispatch:
@@ -81,38 +82,53 @@ def dispatch(expert: torch.Tensor, num_experts: int, cap: int) -> Dispatch:
     rank = torch.gather(torch.cumsum(one_hot, dim=1, dtype=torch.int32) - 1, 2,
                         flat_e[..., None])[..., 0]                  # (B, S*k)
     keep = rank < cap
-    slot = torch.where(keep, flat_e * cap + rank, e * cap)
     # Kept slots are distinct (ranks count up within an expert); every
-    # dropped assignment lands in the overflow column, sliced off below, so
-    # which of them wins that column does not matter.
-    flat_tok = torch.arange(s, device=expert.device).repeat_interleave(k)
-    token_of_slot = torch.full((b, e * cap + 1), s, dtype=torch.int64, device=expert.device)
-    token_of_slot.scatter_(1, slot, flat_tok.expand(b, s * k))
-    return Dispatch(rank, keep, slot, token_of_slot[:, :e * cap])
+    # dropped assignment lands in the overflow column E * C.
+    return Dispatch(rank, keep, torch.where(keep, flat_e * cap + rank, e * cap))
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  Row-local dispatch (capacity per row)."""
+    """x: (B, S, d) -> (B, S, d).  Row-local dispatch (capacity per row).
+
+    The (B, E, C, d) buffer is built by writing each kept assignment's token
+    to its slot (kept slots are distinct, so an index_put without
+    accumulation is exact; dropped ones all land in the overflow column,
+    sliced off, whichever of them wins it), which holds what the
+    reference's gather through its slot->token map holds.  Its backward
+    gathers, and the combine reads the outputs through a zero overflow
+    row: every kept slot's gradient comes from one assignment, so neither
+    backward depends on the order of an atomic accumulation."""
     with record_function("lm.moe"):
         b, s, d = x.shape
-        e = cfg.num_experts
+        e, k = cfg.num_experts, cfg.top_k
         cap = _capacity(s, cfg)
         gate, expert, _ = route(p, x, cfg)
         dsp = dispatch(expert, e, cap)
 
         rows = torch.arange(b, device=x.device)[:, None]
-        x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-        hidden = x_pad[rows, dsp.token_of_slot].reshape(b, e, cap, d)   # (B, E, C, d)
+        x_k = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+        hidden = torch.index_put(x.new_zeros((b, e * cap + 1, d)), (rows, dsp.slot), x_k)
+        hidden = hidden[:, :e * cap].reshape(b, e, cap, d)             # (B, E, C, d)
 
         g = L.silu(torch.einsum('becd,edf->becf', hidden, p.wg.to(x.dtype)))
         u = torch.einsum('becd,edf->becf', hidden, p.wi.to(x.dtype))
         y = torch.einsum('becf,efd->becd', g * u, p.wo.to(x.dtype)).reshape(b, e * cap, d)
 
-        # combine: each token gathers its k expert outputs
-        safe_slot = torch.clamp_max(dsp.slot, e * cap - 1)
-        picked = torch.where(dsp.keep[..., None], y[rows, safe_slot], 0)
-        picked = picked.reshape(b, s, cfg.top_k, d)
+        # combine: each token gathers its k expert outputs (zero if dropped)
+        y_pad = torch.cat([y, y.new_zeros((b, 1, d))], dim=1)
+        picked = y_pad[rows, dsp.slot].reshape(b, s, k, d)
         out = torch.einsum('bskd,bsk->bsd', picked, gate.to(x.dtype))
         if cfg.num_shared_experts:
             out = out + swiglu(p.shared, x)
         return out
+
+
+def load_balancing_loss(router_probs: torch.Tensor, expert_idx: torch.Tensor,
+                        e: int) -> torch.Tensor:
+    """Switch-style aux loss over (T, E) router probabilities and (T, k)
+    choices: e * sum(mean probability x share of first choices).  Exposed
+    for a training loop; `loss_fn` does not call it, as the reference's
+    does not."""
+    me = router_probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(expert_idx[:, 0], e).to(router_probs.dtype).mean(dim=0)
+    return e * torch.sum(me * ce)

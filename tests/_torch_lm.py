@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
+import pytest
 import torch
 
 from repro import configs as jax_configs
@@ -28,6 +29,14 @@ def jax_and_port(cfg, seed=0):
     params = JM.init_params(jax.random.key(seed), cfg)
     model = convert.lm_params_from_jax(jax.tree.map(np.asarray, params), cfg, "cpu")
     return params, model
+
+
+@pytest.fixture
+def no_grad():
+    """The forward checks of the serving path hold values only: they run
+    without an autograd graph (the parameters are trainable)."""
+    with torch.no_grad():
+        yield
 
 
 def load(module, tree):
@@ -57,7 +66,7 @@ def bf16(a):
 
 def f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -108,6 +117,7 @@ def _jax_run(params, cfg, toks, s, extra):
     return full, logits, caches + [jax.tree.map(np.asarray, c)]
 
 
+@torch.no_grad()
 def _port_run(model, toks, s, extra):
     from repro_torch.models import model as TM
     full = TM.forward_train(model, torch.from_numpy(toks)).numpy()
@@ -169,3 +179,84 @@ def check_whole_model(name, b=2, s=16, extra=3):
     errs = [np.abs(log_softmax(lg[:, 0]) - log_softmax(full[:, pos - 1])).max()
             for pos, lg in zip(range(s, s + extra + 1), steps)]
     assert max(errs or [0]) < 0.25, errs
+
+
+# ---------------------------------------------------------------------------
+# Training (the loss, its gradients and one AdamW step)
+# ---------------------------------------------------------------------------
+
+# bf16 runs of the port and the reference op by op: the loss within 0.05
+# (the logits' bound); every gradient leaf within GRAD_FRAC of its largest
+# |g| (bf16 activations summed in another order: observed up to 1.5 %).  A
+# leaf whose whole gradient is float32 rounding noise (llama4's top-1
+# router: gate / sum(gate) is 1 whatever the probabilities) is held at
+# GRAD_FLOOR of the largest |g| of all leaves instead of its own.  float32
+# runs of both are held at GRAD_FRAC_F32.
+LOSS_TOL, GRAD_FRAC, GRAD_FLOOR, GRAD_FRAC_F32 = 0.05, 0.05, 1e-6, 1e-4
+
+
+def labels(cfg, b, s, seed=2):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def named_tree(named):
+    """(name, tensor) pairs as the reference's nested numpy tree."""
+    return convert._stack_named(named)
+
+
+def tree_leaves(tree, prefix=()):
+    """(path, float32 numpy leaf) pairs of a nested dict."""
+    for path, leaf in convert._leaves(tree, prefix):
+        yield path, np.asarray(leaf, np.float32)
+
+
+def at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return np.asarray(tree, np.float32)
+
+
+def assert_grads(got, want, frac=GRAD_FRAC, floor=GRAD_FLOOR):
+    """Every leaf of `got` (a numpy tree) within frac x max(its reference
+    leaf's max |g|, floor x the largest |g| of all leaves)."""
+    top = max(np.abs(w).max() for _, w in tree_leaves(want))
+    paths = sorted(p for p, _ in tree_leaves(got))
+    assert paths == sorted(p for p, _ in tree_leaves(want))
+    for path, g in tree_leaves(got):
+        w = at(want, path)
+        scale = max(np.abs(w).max(), floor * top)
+        err = np.abs(g - w).max()
+        assert err <= frac * scale, (path, err, scale)
+
+
+class GradTap:
+    """While active, records the gradients that the reference's train step
+    hands to `adamw.update` (its module attribute is wrapped)."""
+
+    def __enter__(self):
+        from repro.optim import adamw
+        self.grads, self._update = None, adamw.update
+
+        def update(grads, *args, **kwargs):
+            self.grads = grads
+            return self._update(grads, *args, **kwargs)
+        adamw.update = update
+        return self
+
+    def __exit__(self, *exc):
+        from repro.optim import adamw
+        adamw.update = self._update
+
+
+def jax_train_step(cfg, opt_cfg, params, batch, remat=False):
+    """The reference's make_train_step run op by op from a fresh state:
+    (new state as numpy, metrics as floats, gradients as numpy)."""
+    from repro.launch.steps import TrainState, make_train_step
+    from repro.optim import adamw
+    state = TrainState(params=params, opt=adamw.init(params, opt_cfg),
+                       step=jnp.zeros((), jnp.int32))
+    step = make_train_step(cfg, opt_cfg, remat=remat)
+    with jax.disable_jit(), GradTap() as tap:
+        new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    return to_np(new), {k: float(v) for k, v in metrics.items()}, to_np(tap.grads)

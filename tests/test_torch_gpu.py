@@ -334,3 +334,118 @@ def test_moe_dispatch_on_card_equals_cpu(cuda_device):
     assert not bool(want.keep.all())
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _train_cfg(name):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(name).reduced(), capacity_factor=8.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "qwen2-0.5b", "zamba2-7b",
+                                  "hubert-xlarge"])
+def test_lm_train_step_on_card_equals_cpu(cuda_device, name):
+    """One train step at reduced width from the same parameters and batch on
+    the card and the CPU: the loss within 0.05 and the grad norm within 5 %,
+    the new master weights within 2 lr (an AdamW step is ~ lr sign(g)), and
+    within 1e-6 relative where |g| (read from mu = (1 - b1) g) exceeds 5 %
+    of its leaf's largest (floor 1e-6 of the largest leaf's), where the
+    tolerance cannot flip the step's sign; and no launch of the three FMM
+    kernels."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg, opt_cfg = _train_cfg(name), adamw.OptConfig(warmup_steps=2, total_steps=10)
+    ops.reset_launches()
+    card = M.init_params(cfg, 0, cuda_device)
+    cpu = M.LMModel(cfg, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    batch = make_batch(cfg, DataConfig(seed=1), 0, 2, 16, "cpu")
+    step = steps.make_train_step(cfg, opt_cfg)
+    sg, mg = step(card, steps.init_train_state(card, opt_cfg),
+                  {k: v.to(cuda_device) for k, v in batch.items()})
+    sw, mw = step(cpu, steps.init_train_state(cpu, opt_cfg), batch)
+    assert abs(float(mg["loss"]) - float(mw["loss"])) <= 0.05
+    assert abs(float(mg["grad_norm"]) - float(mw["grad_norm"])) <= 0.05 * float(mw["grad_norm"])
+    lr = float(mw["lr"])
+    top = max(float(m.abs().max()) for m in sw.opt.mu.values())
+    for k, w in sw.opt.master.items():
+        d, mu = (sg.opt.master[k].cpu() - w).abs(), sw.opt.mu[k].abs()
+        assert float(d.max()) <= 2 * lr * 1.001, k
+        sure = mu > 0.05 * max(float(mu.max()), 1e-6 * top)
+        assert bool((d[sure] <= 1e-6 * w[sure].abs() + 1e-9).all()), k
+    assert not any(ops.launches.values())
+
+
+@pytest.mark.gpu
+def test_lm_embedding_backward_same_bits_twice_on_card(cuda_device):
+    """qwen2-0.5b's table (151,936 x 896, bf16) at 4 x 4096 Markov tokens,
+    which repeat: the gradient of `layers.embed` (indexing, whose backward
+    sorts the tokens before it sums their rows) has equal bits twice."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import layers
+    cfg = configs.get("qwen2-0.5b")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=cuda_device
+                        ).to(torch.bfloat16).requires_grad_()
+    tokens = make_batch(cfg, DataConfig(seed=0), 0, 4, 4096, cuda_device)["inputs"]
+    g = torch.randn((4, 4096, cfg.d_model), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    a, b = (torch.autograd.grad(layers.embed(table, tokens), table, g)[0] for _ in range(2))
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_on_card_vs_float64(cuda_device, causal):
+    """The flash backward in bf16 (GQA, and Dq != Dv) within 2e-2 of max |g|
+    of a float64 naive attention's autograd on the same values."""
+    from repro_torch.models.attention import flash_attention
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for h, kv, dq, dv in ((14, 2, 64, 64), (4, 4, 192, 128)):
+        shapes = ((1, 512, h, dq), (1, 512, kv, dq), (1, 512, kv, dv), (1, 512, h, dv))
+        q, k, v, do = (torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
+                       for s in shapes)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*leaves, causal, 0, 128, 128), leaves, do)
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        g = h // kv
+        kk, vv = (t.repeat_interleave(g, dim=2) for t in leaves[1:])
+        sc = torch.einsum('bthd,bshd->bhts', leaves[0], kk) * dq ** -0.5
+        if causal:
+            sc = sc.masked_fill(torch.ones(512, 512, dtype=torch.bool,
+                                           device=cuda_device).triu(1), float("-inf"))
+        o = torch.einsum('bhts,bshd->bthd', torch.softmax(sc, -1), vv)
+        want = torch.autograd.grad(o, leaves, do.double())
+        for a, b in zip(got, want):
+            assert float((a.double() - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "qwen2-0.5b", "zamba2-7b"])
+def test_lm_train_steps_on_card_are_deterministic(cuda_device, name):
+    """Three steps twice from one state: equal bits (the embedding and MoE
+    backwards sum in a fixed order, not by atomics)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg, opt_cfg = _train_cfg(name), adamw.OptConfig(warmup_steps=1, total_steps=10)
+    model = M.init_params(cfg, 0, cuda_device)
+    start = steps.clone_state(steps.init_train_state(model, opt_cfg))
+    ends = []
+    for _ in range(2):
+        st = steps.bind(model, steps.clone_state(start))
+        for i in range(3):
+            st, _ = steps.make_train_step(cfg, opt_cfg)(
+                model, st, make_batch(cfg, DataConfig(seed=2), i, 4, 64, cuda_device))
+        ends.append(steps.clone_state(st))
+    for k in ends[0].params:
+        for part in ("params", "mu", "nu", "master"):
+            a = ends[0].params if part == "params" else getattr(ends[0].opt, part)
+            b = ends[1].params if part == "params" else getattr(ends[1].opt, part)
+            assert torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8)), (part, k)

@@ -42,9 +42,10 @@ def test_scan_covers_the_package():
             "mamba2.py", "model.py", "steps.py", "lm_serve.py", "deepseek_v2_lite_16b.py",
             "llama4_maverick_400b_a17b.py", "chameleon_34b.py", "yi_6b.py", "qwen2_0_5b.py",
             "qwen3_8b.py", "internlm2_1_8b.py", "zamba2_7b.py", "hubert_xlarge.py",
-            "mamba2_1_3b.py", "convert.py"} <= names
+            "mamba2_1_3b.py", "convert.py", "adamw.py", "pipeline.py", "failures.py",
+            "lm_train.py"} <= names
     assert {"audit", "launch", "sharding", "serve", "core", "kernels", "checkpoint", "models",
-            "configs"} <= {p.parent.name for p in PORT_FILES}
+            "configs", "optim", "data", "runtime"} <= {p.parent.name for p in PORT_FILES}
 
 
 @pytest.fixture
@@ -78,6 +79,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         mesh.make_ensemble_group("file:///nonexistent/rendezvous", 0, 1)
     with pytest.raises(RuntimeError, match="cuda"):
         mesh.make_sweep_groups(1, 1, "file:///nonexistent/rendezvous")
+    from repro_torch.launch.distributed import run_ranks
+    with pytest.raises(RuntimeError, match="cuda"):     # before any rank is spawned
+        run_ranks(1, [])
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_batch(configs.get("qwen2-0.5b").reduced(), DataConfig(), 0, 1, 4)
+    from repro_torch.launch import lm_train
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_train.main(["--steps", "1"])
     assert device.resolve("cpu") == torch.device("cpu")
 
 

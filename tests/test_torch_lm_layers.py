@@ -12,7 +12,10 @@ from repro.models import layers as JL
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 
-from _torch_lm import assert_ulps, bf16, f32, load, reduced
+from _torch_lm import assert_ulps, bf16, f32, load, no_grad, reduced  # noqa: F401 (a fixture)
+
+# Forward checks: no autograd graph (the parameters are trainable).
+pytestmark = pytest.mark.usefixtures("no_grad")
 
 
 def test_rms_norm_rope_embed_unembed_silu():

@@ -11,7 +11,10 @@ import torch
 from repro.models import mamba2 as JB
 from repro_torch.models import mamba2 as TB
 
-from _torch_lm import assert_ulps, bf16, f32, load, reduced
+from _torch_lm import assert_ulps, bf16, f32, load, no_grad, reduced  # noqa: F401 (a fixture)
+
+# Forward checks: no autograd graph (the parameters are trainable).
+pytestmark = pytest.mark.usefixtures("no_grad")
 
 
 def _mixer(name):

@@ -10,7 +10,10 @@ import torch
 from repro.models import moe as JE
 from repro_torch.models import moe as TE
 
-from _torch_lm import assert_ulps, bf16, f32, load, reduced
+from _torch_lm import assert_ulps, bf16, f32, load, no_grad, reduced  # noqa: F401 (a fixture)
+
+# Forward checks: no autograd graph (the parameters are trainable).
+pytestmark = pytest.mark.usefixtures("no_grad")
 
 
 def _moe(name, capacity_factor):
@@ -23,16 +26,13 @@ def _loop_dispatch(expert, e, cap):
     """The dispatch rule, one assignment at a time in (token, choice) order."""
     b, s, k = expert.shape
     rank = np.zeros((b, s * k), np.int64)
-    tos = np.full((b, e * cap), s, np.int64)
     for r in range(b):
         count = np.zeros(e, np.int64)
         for i, ex in enumerate(expert[r].reshape(-1)):
             rank[r, i] = count[ex]
             count[ex] += 1
-            if rank[r, i] < cap:
-                tos[r, ex * cap + rank[r, i]] = i // k
     keep = rank < cap
-    return rank, keep, np.where(keep, expert.reshape(b, -1) * cap + rank, e * cap), tos
+    return rank, keep, np.where(keep, expert.reshape(b, -1) * cap + rank, e * cap)
 
 
 def _inputs(cfg, b, s, skew, seed):
@@ -68,8 +68,8 @@ def test_moe_routing_dispatch_and_output(name, capacity_factor, skew):
 
     # integer dispatch of JAX's choices: exact, kept slots written once
     dsp = TE.dispatch(torch.from_numpy(expert_j.astype(np.int64)), cfg.num_experts, cap)
-    rank, keep, slot, tos = _loop_dispatch(expert_j, cfg.num_experts, cap)
-    for got, want in zip(dsp, (rank, keep, slot, tos)):
+    rank, keep, slot = _loop_dispatch(expert_j, cfg.num_experts, cap)
+    for got, want in zip(dsp, (rank, keep, slot), strict=True):
         np.testing.assert_array_equal(got.numpy(), want)
     for r in range(b):
         kept = dsp.slot[r][dsp.keep[r]]
@@ -109,3 +109,18 @@ def test_topk_ties_take_the_lower_index():
     _, expert, _ = TE.route(tp, torch.ones((1, 3, cfg.d_model), dtype=torch.bfloat16), cfg)
     want = np.asarray(jax.lax.top_k(jnp.full((1, 3, cfg.num_experts), 0.125), cfg.top_k)[1])
     np.testing.assert_array_equal(expert.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"])
+def test_load_balancing_loss_matches_reference(name):
+    """The Switch aux loss on the same float32 router probabilities and
+    top-k choices: within 1e-6 relative of the reference's (float32 means
+    summed in another order)."""
+    cfg = reduced(name)
+    logits = np.random.default_rng(3).normal(size=(64, cfg.num_experts)).astype(np.float32)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    idx = np.asarray(jax.lax.top_k(jnp.asarray(probs), cfg.top_k)[1])
+    want = float(JE.load_balancing_loss(jnp.asarray(probs), jnp.asarray(idx), cfg.num_experts))
+    got = float(TE.load_balancing_loss(torch.from_numpy(probs), torch.from_numpy(idx).long(),
+                                       cfg.num_experts))
+    assert abs(got - want) <= 1e-6 * abs(want)

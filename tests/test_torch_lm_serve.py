@@ -153,3 +153,29 @@ def test_decode_matches_train_in_float32_at_depth(name, monkeypatch):
     for j, lg in enumerate(lm_serve.score(model, toks, 40)):
         d = torch.log_softmax(lg.double(), -1) - torch.log_softmax(full[:, 39 + j], -1)
         assert float(d.abs().max()) < 1e-4, (j, float(d.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "hubert-xlarge", "qwen2-0.5b",
+                                  "zamba2-7b"])
+def test_serving_builds_no_graph(name):
+    """The parameters are trainable, yet prefill, decode, the serving steps
+    and `lm_serve.generate`/`score` run under `torch.inference_mode()`: the
+    logits and tokens they return are inference tensors with no `grad_fn`,
+    and the caches (the caller's, written in place) record no graph."""
+    cfg = reduced(name)
+    model = TM.init_params(cfg, 0, "cpu")
+    assert all(p.requires_grad for p in model.parameters())
+    toks = torch.from_numpy(inputs(cfg, 2, 12))
+    no_graph = lambda t: t.grad_fn is None and not t.requires_grad
+    if cfg.is_encoder:
+        out = steps.make_prefill_step(cfg)(model, {"inputs": toks})
+        assert out.is_inference() and no_graph(out)
+        return
+    lg0, caches = TM.forward_prefill(model, toks[:, :11], TM.make_cache(cfg, 2, 13, "cpu"))
+    lg1, caches = TM.forward_decode(model, toks[:, 11:], caches, 11)
+    assert all(no_graph(t) for t in jax.tree.leaves(caches))
+    lg2, _ = steps.make_prefill_step(cfg)(model, TM.make_cache(cfg, 2, 13, "cpu"),
+                                          {"inputs": toks[:, :11]})
+    outs = [lg0, lg1, lg2, lm_serve.generate(model, toks[:, :11], 2).tokens]
+    outs += lm_serve.score(model, toks, 10)
+    assert all(t.is_inference() and no_graph(t) for t in outs)
