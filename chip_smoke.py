@@ -135,14 +135,31 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              from one state give equal bits, and ten steps with a failure
              injected at step 6 under `RestartSupervisor` and
              `CheckpointManager` end equal to the uninterrupted run.
+18. lm_mesh — the FSDP train step over a layout (`make_train_step(mesh=)`,
+             `launch/mesh.make_host_mesh`, `sharding/rules.py`'s LM specs),
+             which launches none of the three kernels: qwen2-0.5b whole at
+             phase 17's 4 x 4096 with remat, three steps of the step on a
+             1 x 1 NCCL layout (dp_over_model=True: each unit's weights
+             gathered before it runs and again in the recomputation, its
+             gradients reduce-scattered) and three of the single-device
+             step, from one seed and the same batches: equal bits in loss,
+             grad norm, every gradient leaf and every leaf of params, mu,
+             nu and master; both median step times and peaks, the census
+             of one step, a fourth step of each under the profiler at
+             4 x 512 (device busy time; the device time of the layout's
+             ranges lm.gather, lm.scatter and lm.reduce, which move
+             weights and gradients only), and from the specs alone
+             `use_dp_over_model`'s answer and a rank's train-state bytes
+             for qwen2-0.5b at TRAIN_4K on 16 x 16 and 2 x 16 x 16 in both
+             postures.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
 m2m, probes, serve) zeroes the launch counts just before it and reads them
 just after; dist and sweep2d do so around each distributed engine run (and
 dist around each emulated per-rank descent), so the single-device runs they
-compare with are not counted; lm and train zero them before their runs and
-require them still 0 after.  lm serves under the port's own
+compare with are not counted; lm, train and lm_mesh zero them before their
+runs and require them still 0 after.  lm serves under the port's own
 `torch.inference_mode()`, so its peak memory shows that serving builds no
 graph; only its `forward_train` reference passes run under
 `torch.no_grad()`.  The script prints the card's
@@ -2826,6 +2843,181 @@ def phase_train(seed: int) -> dict:
     return out
 
 
+class GradTap:
+    """While active, keeps each train step's gradients as the step hands
+    them to `adamw.update` (references: update reads them, so the tap adds
+    no copy and no time to the step)."""
+
+    def __enter__(self):
+        from repro_torch.optim import adamw
+        self.grads, self._update = [], adamw.update
+
+        def update(grads, *args, **kwargs):
+            self.grads.append(grads)
+            return self._update(grads, *args, **kwargs)
+        adamw.update = update
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.optim import adamw
+        adamw.update = self._update
+
+
+def host_bits(tree: dict) -> dict:
+    """Every tensor of a name -> tensor dict on the host, as raw bytes."""
+    return {k: v.detach().reshape(-1).view(torch.uint8).cpu() for k, v in tree.items()}
+
+
+def state_bits(state) -> dict:
+    o = state.opt
+    return {part: host_bits(tree) for part, tree in
+            (("params", state.params), ("mu", o.mu), ("nu", o.nu), ("master", o.master))}
+
+
+def mesh_arithmetic(cfg, opt_cfg) -> dict:
+    """From the specs alone: the DP-or-TP choice and a rank's bytes of params,
+    mu, nu and master for `cfg` at TRAIN_4K on the reference's production
+    layouts, in both postures."""
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models.config import TRAIN_4K
+    out = {}
+    for name, multi in (("16x16", False), ("2x16x16", True)):
+        layout = mesh.make_production_mesh(multi_pod=multi)
+        out[name] = dict(
+            use_dp_over_model=steps.use_dp_over_model(cfg, layout, TRAIN_4K.global_batch),
+            state_bytes_per_rank={
+                "fsdp_tp": steps.state_bytes_per_rank(layout, cfg, opt_cfg, False),
+                "dp_over_model": steps.state_bytes_per_rank(layout, cfg, opt_cfg, True)})
+    return out
+
+
+MESH_PROFILE_S = 512      # phase 18's profiled step: 4 x 512 tokens
+
+
+def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
+    """18. lm_mesh: the FSDP train step (`make_train_step(mesh=)`) over a
+    1 x 1 NCCL layout against the single-device step, qwen2-0.5b whole at
+    phase 17's 4 x 4096 with remat, three steps each from one seed: equal
+    bits in loss, grad norm, every gradient leaf and every leaf of params,
+    mu, nu and master; both step times and peaks, the census of one step,
+    and the spec arithmetic of the production layouts."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import model as M
+    from repro_torch.models.config import TRAIN_4K
+    from repro_torch.optim import adamw
+    matmul = torch.backends.cuda.matmul
+    reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False    # as phases 16 and 17
+    cfg, opt_cfg, data = configs.get(TRAIN_ARCH), adamw.OptConfig(**TRAIN_OPT), \
+        DataConfig(seed, "lm")
+    arithmetic = mesh_arithmetic(cfg, opt_cfg)
+    log(f"[lm_mesh] spec arithmetic, {cfg.name} at {TRAIN_4K.name} (global batch "
+        f"{TRAIN_4K.global_batch}): {json.dumps(arithmetic)}")
+
+    def run(step_fn, model, state, layout=None):
+        """Three steps: per step the metrics, the gradients' bits and the
+        time (CUDA events); the peak; the census of the last step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = dict(metrics=[], grads=[], ms=[])
+        for i in range(3):
+            batch = make_batch(cfg, data, i, TRAIN_B, TRAIN_S, LM_DEV)
+            if layout is not None:
+                batch = steps.shard_batch(layout, batch, True)
+                layout.reset_counts()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with GradTap() as tap:
+                t0.record()
+                state, m = step_fn(model, state, batch)
+                t1.record()
+            torch.cuda.synchronize()
+            out["ms"].append(t0.elapsed_time(t1))
+            out["metrics"].append({k: v.reshape(1).view(torch.int32).item() for k, v in m.items()})
+            out["grads"].append(host_bits(tap.grads[0]))
+            del tap, batch
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["state"] = state_bits(state)
+        out["counts"] = layout.counts() if layout is not None else None
+        # A fourth step under the profiler, after the checked and timed ones,
+        # at MESH_PROFILE_S tokens a row (what the layout adds, the mesh
+        # step's lm.gather, lm.scatter and lm.reduce, moves weights and
+        # gradients only, the same bytes at any batch; at 4096 tokens the
+        # flash loops' events take the profiler a minute to sort): device
+        # time of the step and of its ranges.
+        batch = make_batch(cfg, data, 3, TRAIN_B, MESH_PROFILE_S, LM_DEV)
+        if layout is not None:
+            batch = steps.shard_batch(layout, batch, True)
+        out["profile"] = profile_window(lambda: step_fn(model, state, batch), top=4)
+        return out
+
+    ops.reset_launches()
+    model = M.init_params(cfg, seed, LM_DEV)
+    single = run(steps.make_train_step(cfg, opt_cfg, remat=True), model,
+                 steps.init_train_state(model, opt_cfg))
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
+        layout = mesh.make_host_mesh(1, 1, f"file://{tmp}/rendezvous", 0, LM_DEV)
+        try:
+            layout = layout.counting()
+            whole = M.init_params(cfg, seed, LM_DEV)
+            state = steps.shard_state(layout, steps.init_train_state(whole, opt_cfg), True)
+            del whole
+            torch.cuda.empty_cache()
+            fsdp = run(steps.make_train_step(cfg, opt_cfg, remat=True, mesh=layout,
+                                             dp_over_model=True),
+                       M.LMModel(cfg, None, "meta"), state, layout)
+            del state
+        finally:
+            dist.destroy_process_group()
+    if any(ops.launches.values()):
+        raise AssertionError(f"lm_mesh: the mesh step launched {ops.launches}")
+    differ = [f"step {i} {k}" for i in range(3) for k in single["metrics"][i]
+              if single["metrics"][i][k] != fsdp["metrics"][i][k]]
+    differ += [f"step {i} grad {k}" for i in range(3) for k, g in single["grads"][i].items()
+               if not torch.equal(g, fsdp["grads"][i][k])]
+    differ += [f"{part} {k}" for part, tree in single["state"].items()
+               for k, v in tree.items() if not torch.equal(v, fsdp["state"][part][k])]
+    if differ:
+        raise AssertionError(f"lm_mesh: the 1 x 1 mesh step differs from the single-device "
+                             f"step in {len(differ)} places: {differ[:8]}")
+    as_float = lambda bits: float(np.array(bits, np.int32).view(np.float32))
+    med = lambda ms: float(np.median(ms[1:]))
+    out = dict(model=cfg.name, batch=TRAIN_B, seq=TRAIN_S, steps=3, equal_bits=True,
+               losses=[as_float(m["loss"]) for m in single["metrics"]],
+               grad_norms=[as_float(m["grad_norm"]) for m in single["metrics"]],
+               single_step_ms=single["ms"], mesh_step_ms=fsdp["ms"],
+               single_median_ms=med(single["ms"]), mesh_median_ms=med(fsdp["ms"]),
+               single_peak_gib=single["peak_gib"], mesh_peak_gib=fsdp["peak_gib"],
+               census_one_step=fsdp["counts"], launches=dict(ops.launches),
+               arithmetic=arithmetic, phase17_median_ms=train["whole"]["median_step_ms"],
+               phase17_peak_gib=train["whole"]["peak_gib"], card=card,
+               profile_single=single["profile"], profile_mesh=fsdp["profile"])
+    gathers = fsdp["counts"]["data"]["gather"]
+    ranges = fsdp["profile"]["layers_device_ms"]
+    added = {k: ranges.get(k, 0.0) for k in ("lm.gather", "lm.scatter", "lm.reduce")}
+    log(f"[lm_mesh] profiled fourth step, {TRAIN_B} x {MESH_PROFILE_S} ({card}): device busy single "
+        f"{single['profile']['device_busy_ms']:.3f} ms, mesh "
+        f"{fsdp['profile']['device_busy_ms']:.3f} ms; the layout's ranges (device ms) "
+        f"{json.dumps(added)}, together {sum(added.values()):.3f} ms")
+    log(f"[lm_mesh] {cfg.name} whole, {TRAIN_B} x {TRAIN_S}, remat, 3 steps ({card}): the "
+        f"1 x 1 NCCL mesh step equals the single-device step bit for bit (loss, grad norm, "
+        f"{len(single['grads'][0])} gradient leaves a step, params, mu, nu, master); median "
+        f"step (steps 2-3) single {out['single_median_ms']:.2f} ms, mesh "
+        f"{out['mesh_median_ms']:.2f} ms ({out['mesh_median_ms'] / out['single_median_ms'] - 1:+.2%}"
+        f"); peak single {out['single_peak_gib']:.2f} GiB, mesh {out['mesh_peak_gib']:.2f} GiB; "
+        f"gathers a step {gathers['calls']} ({gathers['bytes'] / 1e9:.3f} GB, largest "
+        f"{gathers['largest'] / 1e6:.1f} MB); kernel launches {dict(ops.launches)}")
+    log("[lm_mesh] " + json.dumps(out))
+    matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -2836,7 +3028,7 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train")
+          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train", "lm_mesh")
 
 
 def main() -> int:
@@ -2894,6 +3086,8 @@ def main() -> int:
             run[name] = phase_lm(args.seed)
         elif name == "train":
             run[name] = phase_train(args.seed)
+        elif name == "lm_mesh":
+            run[name] = phase_lm_mesh(args.seed, run["train"], card)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -2918,8 +3112,9 @@ def main() -> int:
         k["dist_launches"] = run["dist"]["launches"][k["name"]]
         k["sweep2d_launches"] = run["sweep2d"]["launches"][k["name"]]
     kernels[1]["dist_emulated_launches"] = run["dist"]["emulated_launches"]["m2l_separable"]
-    for k in kernels:      # the LM training path launches none of them
+    for k in kernels:      # the LM training path, on one card or a layout, launches none
         k["train_launches"] = run["train"]["launches"].get(k["name"], 0)
+        k["lm_mesh_launches"] = run["lm_mesh"]["launches"].get(k["name"], 0)
     for k in kernels:
         log(f"[kernels] {k['name']}: {k['ms']:.4f} ms against a {k['bound_ms']:.4f} ms bound "
             f"({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

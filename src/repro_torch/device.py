@@ -16,6 +16,6 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):    # meta: shapes only (`launch.steps`)
         raise ValueError(f"unsupported device {dev}")
     return dev

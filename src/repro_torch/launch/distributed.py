@@ -11,7 +11,10 @@ result for the caller.  A `Job` runs `DistributedPlasticityEngine` on a
 data group of every rank; with `ensemble=e`, the ranks form the 2-D layout
 of e x (world/e) ranks (`launch.mesh.make_sweep_groups`), and a job is any
 object with a `run(groups, device)` method, such as `EnsembleJob`
-(`DistributedEnsembleEngine`) or `launch.serve.ServiceJob`.
+(`DistributedEnsembleEngine`) or `launch.serve.ServiceJob`; with
+`lm=(data, model)`, the ranks form the LM layout
+(`launch.mesh.make_host_mesh`) and a job's `run` gets its `LMGroups`
+(`launch.lm_train.TrainJob`).
 
 The 1-D demo runs N = 256 for 300 steps in every allowed combination of the
 engine's switches and checks each run against the single-device engine on
@@ -28,7 +31,7 @@ import itertools
 import os
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -183,20 +186,24 @@ def held_bytes(tree) -> dict:
 
 
 def _rank_main(rank: int, world: int, init_file: str, jobs: Sequence, out_dir: str,
-               device: str, collective_timeout_s: float, ensemble: Optional[int]) -> None:
+               device: str, collective_timeout_s: float, ensemble: Optional[int],
+               lm: Optional[Tuple[int, int]] = None) -> None:
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_data_group, make_sweep_groups
+    from repro_torch.launch.mesh import make_data_group, make_host_mesh, make_sweep_groups
     if device == "cpu":
         torch.set_num_threads(1)        # p processes share the host's cores
     init = f"file://{init_file}"
-    if ensemble is None:
+    groups = None
+    if lm is not None:
+        groups = make_host_mesh(*lm, init, rank, device, collective_timeout_s)
+    elif ensemble is None:
         group = make_data_group(init, rank, world, device, collective_timeout_s)
     else:
         groups = make_sweep_groups(ensemble, world // ensemble, init, rank, device,
                                    collective_timeout_s)
     try:
         for i, job in enumerate(jobs):
-            res = run_job(group, job, device) if ensemble is None else job.run(groups, device)
+            res = run_job(group, job, device) if groups is None else job.run(groups, device)
             if rank == 0:
                 torch.save(res, os.path.join(out_dir, f"{i}.pt"))
     finally:
@@ -204,24 +211,30 @@ def _rank_main(rank: int, world: int, init_file: str, jobs: Sequence, out_dir: s
 
 
 def run_ranks(world: int, jobs: Sequence, device: str = "cuda", timeout_s: float = 300.0,
-              collective_timeout_s: float = 60.0, ensemble: Optional[int] = None) -> List[dict]:
+              collective_timeout_s: float = 60.0, ensemble: Optional[int] = None,
+              lm: Optional[Tuple[int, int]] = None) -> List[dict]:
     """Run `jobs` on `world` spawned ranks; returns rank 0's result of each.
     ensemble None: every job a `Job` on a data group of all ranks
     (`run_job`); ensemble=e: the 2-D layout of e x (world/e) ranks, each job
-    run by `job.run(groups, device)`.  Raises if a rank fails (a collective
-    that waits longer than collective_timeout_s fails it), and stops every
-    rank and raises if they are not done within timeout_s.  Runs on the
-    card unless device="cpu" (gloo) is asked for."""
+    run by `job.run(groups, device)`; lm=(data, model): the LM layout of
+    data x model ranks, each job run by `job.run(layout, device)`.  Raises
+    if a rank fails (a collective that waits longer than
+    collective_timeout_s fails it), and stops every rank and raises if they
+    are not done within timeout_s.  Runs on the card unless device="cpu"
+    (gloo) is asked for."""
     _device.resolve(device)
     if ensemble is not None and world % ensemble:
         raise ValueError(f"the ensemble axis size {ensemble} must divide the world size {world}")
+    if lm is not None and lm[0] * lm[1] != world:
+        raise ValueError(f"the LM layout {lm[0]} x {lm[1]} needs {lm[0] * lm[1]} ranks, "
+                         f"not {world}")
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_dist_") as tmp:
         init = os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world, init, list(jobs), tmp, device,
-                                   collective_timeout_s, ensemble))
+                                   collective_timeout_s, ensemble, lm))
                  for r in range(world)]
         for p in procs:
             p.start()

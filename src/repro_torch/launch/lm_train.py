@@ -4,18 +4,29 @@ of `examples/lm_train.py`).
     PYTHONPATH=src python -m repro_torch.launch.lm_train --device cpu --steps 30
     PYTHONPATH=src python -m repro_torch.launch.lm_train --arch mamba2-1.3b --steps 50
     PYTHONPATH=src python -m repro_torch.launch.lm_train --preset 100m --steps 300
+    PYTHONPATH=src python -m repro_torch.launch.lm_train --data 2 --model 2 --device cpu
 
 Defaults to a CI-sized model; `--preset 100m` trains a ~100M-parameter
 model of the arch's family.  The flow: config, `data.pipeline.make_batch`,
 AdamW through `launch.steps.make_train_step`, `CheckpointManager` save and
 restore, `StragglerMonitor`.  Each step's loss is read on the host inside
 the monitor's window, so the monitor times the finished step.
+
+`--data D --model M` trains on a D x M layout of spawned ranks
+(`launch.distributed.run_ranks`; NCCL, one card a rank, or gloo with
+`--device cpu`): the FSDP step with the model axis carrying batch blocks
+(`dp_over_model=True`) and remat, each rank holding its blocks of the
+state and of each step's batch.  A checkpoint is the whole state, brought
+to rank 0's host (`sharding.rules.gather_tree_to_host`); a resume restores it on
+every rank and keeps the rank's blocks (`runtime.failures.reshard`), so it
+may resume on another layout.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Callable, List, Optional
 
 import torch
 
@@ -31,6 +42,82 @@ def config(arch: str, preset: str):
     return base.reduced(layers=2, d_model=128, vocab=512)
 
 
+def train_loop(step_fn, model, state, batch_of: Callable[[int], dict], start: int, steps: int,
+               save: Optional[Callable] = None, log: Callable[[str], None] = print) -> List[float]:
+    """Steps `start`..`steps-1`: each step's batch from `batch_of(i)`, a line
+    every 10 steps, `save(state, step)` every 50; returns the losses."""
+    from repro_torch.runtime.failures import StragglerMonitor
+    mon = StragglerMonitor(window=50, threshold=3.0)
+    losses = []
+    t0 = time.time()
+    for i in range(start, steps):
+        batch = batch_of(i)
+        with mon.timed(i):
+            state, metrics = step_fn(model, state, batch)
+            loss = float(metrics["loss"])
+        losses.append(loss)
+        if i % 10 == 0 or i == steps - 1:
+            log(f"step {i:5d}  loss={loss:.4f}  "
+                f"gnorm={float(metrics['grad_norm']):.3f}  "
+                f"lr={float(metrics['lr']):.2e}  ({time.time() - t0:.1f}s)")
+        if save is not None and (i + 1) % 50 == 0:
+            save(state, i + 1)
+    if mon.events:
+        log(f"straggler steps flagged: {[e.step for e in mon.events]}")
+    return losses
+
+
+@dataclasses.dataclass
+class TrainJob:
+    """Training on the ranks of an LM layout (`run_ranks(..., lm=(D, M))`)."""
+    arch: str
+    preset: str
+    steps: int
+    batch: int
+    seq: int
+    lr: float
+    ckpt_dir: str = ""
+
+    def run(self, mesh, device) -> dict:
+        from repro_torch.checkpoint.manager import CheckpointManager, latest_step
+        from repro_torch.data.pipeline import DataConfig, make_batch
+        from repro_torch.launch import steps
+        from repro_torch.models import model as M
+        from repro_torch.optim import adamw
+        from repro_torch.sharding import rules
+        cfg = config(self.arch, self.preset)
+        opt_cfg = adamw.OptConfig(peak_lr=self.lr, warmup_steps=20, total_steps=self.steps)
+        log = print if mesh.rank == 0 else (lambda _: None)
+        log(f"arch={cfg.name} batch={self.batch} seq={self.seq} layout "
+            f"{mesh.shape} ({device})")
+        whole = steps.init_train_state(M.init_params(cfg, 0, device), opt_cfg)
+        mgr, start, save = None, 0, None
+        if self.ckpt_dir:
+            mgr = CheckpointManager(self.ckpt_dir, keep=2, async_save=False)
+            if latest_step(self.ckpt_dir) is not None:
+                whole, start = mgr.restore(whole)
+                log(f"resumed at step {start}")
+            specs = steps.state_shardings(mesh, cfg, opt_cfg, dp_over_model=True)
+
+            def save(state, step):
+                host = rules.gather_tree_to_host(specs, state, group_of=mesh.group,
+                                                 coords=mesh.coords)
+                if host is not None:
+                    mgr.save(host, step)
+        state = steps.shard_state(mesh, whole, dp_over_model=True)
+        del whole
+        data = DataConfig(seed=0)
+        losses = train_loop(
+            steps.make_train_step(cfg, opt_cfg, remat=True, mesh=mesh, dp_over_model=True),
+            M.LMModel(cfg, None, "meta"), state,
+            lambda i: steps.shard_batch(mesh, make_batch(cfg, data, i, self.batch, self.seq,
+                                                         device), True),
+            start, self.steps, save, log)
+        if mgr is not None:
+            mgr.close()
+        return dict(losses=losses)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -41,13 +128,23 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data", type=int, default=0,
+                    help="train on a data x model layout of ranks (0: one device, no layout)")
+    ap.add_argument("--model", type=int, default=1, help="model axis size of the layout")
     args = ap.parse_args(argv)
+
+    if args.data:
+        from repro_torch.launch.distributed import run_ranks
+        job = TrainJob(args.arch, args.preset, args.steps, args.batch, args.seq, args.lr,
+                       args.ckpt_dir)
+        run_ranks(args.data * args.model, [job], args.device, timeout_s=24 * 3600.0,
+                  lm=(args.data, args.model))
+        return
 
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.launch.steps import bind, init_train_state, make_train_step
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
-    from repro_torch.runtime.failures import StragglerMonitor
 
     dev = _device.resolve(args.device)
     cfg = config(args.arch, args.preset)
@@ -58,7 +155,6 @@ def main(argv=None) -> None:
           f"device={dev}")
 
     state = init_train_state(model, opt_cfg)
-    step_fn = make_train_step(cfg, opt_cfg, remat=False)
     data = DataConfig(seed=0)
 
     mgr = None
@@ -71,24 +167,12 @@ def main(argv=None) -> None:
             state = bind(model, restored)
             print(f"resumed at step {start}")
 
-    mon = StragglerMonitor(window=50, threshold=3.0)
-    t0 = time.time()
-    for i in range(start, args.steps):
-        batch = make_batch(cfg, data, i, args.batch, args.seq, dev)
-        with mon.timed(i):
-            state, metrics = step_fn(model, state, batch)
-            loss = float(metrics["loss"])
-        if i % 10 == 0 or i == args.steps - 1:
-            print(f"step {i:5d}  loss={loss:.4f}  "
-                  f"gnorm={float(metrics['grad_norm']):.3f}  "
-                  f"lr={float(metrics['lr']):.2e}  ({time.time() - t0:.1f}s)")
-        if mgr is not None and (i + 1) % 50 == 0:
-            mgr.save(state, i + 1)
+    train_loop(make_train_step(cfg, opt_cfg, remat=False), model, state,
+               lambda i: make_batch(cfg, data, i, args.batch, args.seq, dev), start, args.steps,
+               None if mgr is None else mgr.save)
     if mgr is not None:
         mgr.wait()
         mgr.close()
-    if mon.events:
-        print(f"straggler steps flagged: {[e.step for e in mon.events]}")
 
 
 if __name__ == "__main__":

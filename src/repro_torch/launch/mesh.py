@@ -1,6 +1,5 @@
-"""The mesh axes of the distributed engines over `torch.distributed` (port of
-`repro/launch/mesh.py`'s `make_data_mesh`, `make_ensemble_mesh` and
-`make_sweep_mesh`).
+"""The mesh axes of the distributed engines and of the LM over
+`torch.distributed` (port of `repro/launch/mesh.py`).
 
 The JAX engines name a mesh axis in their collectives; the port runs one
 process per rank and hands the engines a `Group` per axis, whose methods
@@ -19,23 +18,28 @@ nothing but the gathers of results after a run.  This module is the only
 one that calls `torch.distributed`'s collectives.
 
 `make_data_group` starts a 1-D data layout, `make_ensemble_group` a 1-D
-replica layout, `make_sweep_groups` the 2-D (ensemble x data) one: NCCL
-for the card, gloo for the CPU, and no fallback from one to the other.
-`CountingGroup` records the calls and bytes of each collective (the
-census, the tests and chip_smoke.py read it).  `ShapeGroup` knows its size
-only, for the static counters of a layout with more ranks than there are
-processes.
+replica layout, `make_sweep_groups` the 2-D (ensemble x data) one, and
+`make_host_mesh` the LM's (data x model) layout (`LMGroups`: a group per
+axis, the fsdp group and the world): NCCL for the card, gloo for the CPU,
+and no fallback from one to the other.  `make_production_mesh` is the
+reference's 16 x 16 or 2 x 16 x 16 layout seen from one rank, of
+`ShapeGroup`s: the spec arithmetic of a layout with more ranks than there
+are processes.  `CountingGroup` records the calls and bytes of each
+collective (the census, the tests and chip_smoke.py read it).
+`ShapeGroup` knows its size only, for the static counters of a layout with
+more ranks than there are processes.
 """
 from __future__ import annotations
 
 import datetime
-from typing import Dict, List, NamedTuple, Optional
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import device as _device
-from repro_torch.sharding.rules import DATA, ENSEMBLE
+from repro_torch.sharding.rules import DATA, ENSEMBLE, MODEL, POD, block_of, coords_of
 
 
 class Group:
@@ -122,8 +126,8 @@ class ShapeGroup:
 class CountingGroup:
     """A group that counts, per collective, its calls and the elements and
     bytes of the whole vector it moves: a gather's output, a merge's input,
-    a scatter_sum's input, a gather_to_host's parts (as sent: the most one
-    message holds is in "largest")."""
+    a scatter_sum's input, a gather_to_host's parts (as sent).  "largest"
+    is the most bytes one call moved (for gather_to_host, one message)."""
 
     NAMES = ("gather", "merge", "scatter_sum", "gather_objects", "gather_to_host")
 
@@ -135,14 +139,14 @@ class CountingGroup:
 
     def reset(self) -> None:
         self.counts: Dict[str, Dict[str, int]] = {
-            k: {"calls": 0, "elements": 0, "bytes": 0} for k in self.NAMES}
-        self.counts["gather_to_host"]["largest"] = 0
+            k: {"calls": 0, "elements": 0, "bytes": 0, "largest": 0} for k in self.NAMES}
 
     def _count(self, name: str, t: torch.Tensor) -> None:
         c = self.counts[name]
         c["calls"] += 1
         c["elements"] += t.numel()
         c["bytes"] += t.numel() * t.element_size()
+        c["largest"] = max(c["largest"], t.numel() * t.element_size())
 
     def gather(self, x):
         out = self.inner.gather(x)
@@ -236,3 +240,127 @@ def make_sweep_groups(ensemble: int, data: int, init_method: str | None = None, 
     cols = [dist.new_group(list(range(j, need, data))) for j in range(data)]
     return SweepGroups(data=Group(rows[me // data], DATA),
                        ensemble=Group(cols[me % data], ENSEMBLE))
+
+
+class LMGroups:
+    """One rank's groups of the LM layout (port of the reference's
+    `make_host_mesh` / `make_production_mesh` meshes): ranks numbered
+    row-major over `axes` ((pod,) data, model), as the reference's
+    `np.array(devices).reshape(...)` places devices.  `groups` maps a tuple
+    of axes, in layout order, to the group of the ranks that share every
+    other coordinate (its rank order is the row-major order over those
+    axes): each single axis, the fsdp axes (pod, data) and the world.
+    `shape` maps each axis to its size (what the spec functions of
+    `sharding.rules` read), `coords` to this rank's (coordinate, size)."""
+
+    def __init__(self, axes: Sequence[str], sizes: Sequence[int], rank: int,
+                 groups: Dict[Tuple[str, ...], object]):
+        self.axes, self.sizes, self.rank = tuple(axes), tuple(sizes), int(rank)
+        self.groups = dict(groups)
+        self.shape = dict(zip(self.axes, self.sizes))
+        self.coords = coords_of(self.axes, self.sizes, self.rank)
+        self.size = math.prod(self.sizes)
+        self.world = self.groups[self.axes]
+        self.device = self.world.device
+
+    def group(self, axes: Sequence[str]):
+        """The group of the ranks that differ only in `axes` (None for ())."""
+        axes = tuple(a for a in self.axes if a in axes)
+        if not axes:
+            return None
+        if axes not in self.groups:
+            raise KeyError(f"the layout has no group over {axes}: {sorted(self.groups)}")
+        return self.groups[axes]
+
+    def counting(self) -> "LMGroups":
+        """The same layout with every group wrapped in a `CountingGroup`
+        (one wrapper for a group that serves two axis tuples)."""
+        wrapped = {}
+        groups = {k: wrapped.setdefault(id(g), CountingGroup(g)) for k, g in self.groups.items()}
+        return LMGroups(self.axes, self.sizes, self.rank, groups)
+
+    def counts(self) -> Dict[str, dict]:
+        """Each counting group's counts, keyed by its axes joined with "+"."""
+        seen, out = set(), {}
+        for k, g in self.groups.items():
+            if isinstance(g, CountingGroup) and id(g) not in seen:
+                seen.add(id(g))
+                out["+".join(k)] = {n: dict(c) for n, c in g.counts.items()}
+        return out
+
+    def reset_counts(self) -> None:
+        for g in self.groups.values():
+            if isinstance(g, CountingGroup):
+                g.reset()
+
+
+def _axis_tuples(axes: Tuple[str, ...]) -> List[Tuple[str, ...]]:
+    """The axis tuples a layout has groups for: each axis, the fsdp axes
+    (pod, data) when there is a pod axis, and the world."""
+    out = [(a,) for a in axes]
+    if POD in axes:
+        out.append((POD, DATA))
+    return out + ([axes] if len(axes) > 1 else [])
+
+
+def _members(axes: Tuple[str, ...], sizes: Tuple[int, ...], over: Tuple[str, ...]):
+    """Every group of ranks over `over`: lists of global ranks that share
+    every other coordinate, sorted."""
+    out = {}
+    for r in range(math.prod(sizes)):
+        c = coords_of(axes, sizes, r)
+        out.setdefault(tuple(c[a][0] for a in axes if a not in over), []).append(r)
+    return list(out.values())
+
+
+def shape_layout(sizes: Sequence[int], rank: int = 0) -> LMGroups:
+    """The layout of `sizes` ((data, model) or (pod, data, model)) seen from
+    `rank`, of `ShapeGroup`s: spec arithmetic only, no collective."""
+    axes = (POD, DATA, MODEL) if len(sizes) == 3 else (DATA, MODEL)
+    coords = coords_of(axes, sizes, rank)
+    groups = {}
+    for over in _axis_tuples(axes):
+        index, size = block_of(over, coords)
+        groups[over] = ShapeGroup(size, index, name="+".join(over))
+    return LMGroups(axes, sizes, rank, groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> LMGroups:
+    """The reference's production layout, 16 x 16 (data, model) or 2 x 16 x
+    16 (pod, data, model), seen from `rank`: `ShapeGroup`s, for the spec
+    arithmetic of 256 or 512 ranks (no collective)."""
+    return shape_layout((2, 16, 16) if multi_pod else (16, 16), rank)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, init_method: str | None = None,
+                   rank: int = 0, device: str | torch.device = "cuda",
+                   timeout_s: float = 120.0) -> LMGroups:
+    """The LM layout of data x model ranks: rank r has data coordinate
+    r // model and model coordinate r % model.  Starts the default process
+    group of data*model ranks when none is running (init_method, rank and
+    device as `make_data_group`; NCCL on the card, gloo on the CPU); an
+    existing one must have data*model ranks.  Every rank creates every
+    group (each axis's, the world is the default group), in the same order
+    (`dist.new_group` is collective)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"LM layout needs positive axis sizes, got {data} x {model}")
+    need = data * model
+    if not dist.is_initialized():
+        if init_method is None:
+            raise ValueError("no process group is running: pass init_method")
+        _start(init_method, rank, need, device, timeout_s)
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"LM layout needs {need} ranks ({data} x {model}), "
+                         f"the process group has {world}")
+    axes, sizes, me = (DATA, MODEL), (data, model), dist.get_rank()
+    groups = {}
+    for over in _axis_tuples(axes):
+        if over == axes:
+            groups[over] = Group(None, "+".join(over))
+            continue
+        for members in _members(axes, sizes, over):
+            pg = dist.new_group(members)
+            if me in members:
+                groups[over] = Group(pg, "+".join(over))
+    return LMGroups(axes, sizes, me, groups)

@@ -1,19 +1,33 @@
-"""Train / prefill / decode step factories (port of `repro.launch.steps`,
-single device).
+"""Train / prefill / decode step factories and the LM layout's shardings
+(port of `repro.launch.steps`).
 
 `input_specs` gives each model input of a shape cell as a shape and a dtype;
 `make_train_step` returns the function a trainer calls, `make_prefill_step`
-and `make_decode_step` the ones a server calls (under inference mode).  The
-single-device port has no sharding arguments, and no `abstract_*` or
-`*_shardings` builders: those exist only over a mesh.
+and `make_decode_step` the ones a server calls (under inference mode).
 
 A `TrainState`'s params are the model's own parameters (`init_train_state`,
 `bind`), and a train step updates them and the optimizer state in place
 (`optim.adamw`); `clone_state` copies a state to keep it.
+
+Over a layout (`launch.mesh.make_host_mesh`): the `abstract_*` trees are
+meta-device tensors (shapes and dtypes, no storage), and the `*_shardings`
+are spec trees (`sharding.rules`), as the reference's are
+`NamedSharding` trees.  `make_train_step(mesh=)` is the FSDP (ZeRO-3)
+step over the fsdp axes: each rank holds its blocks of params, mu, nu and
+master (`shard_state`, `runtime.failures.reshard`), gathers each unit's
+weights just before the unit runs (again in a remat unit's
+recomputation) and drops them after, reduce-scatters each unit's
+gradients in the gather's backward, reduces what the spec leaves whole
+over the other axes, and runs AdamW on its blocks.  Tensor parallelism
+over the model axis (the reference's other posture) is not ported: with
+model > 1 the step needs `dp_over_model=True`.  The prefill and decode
+steps take no layout yet.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import contextlib
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -21,6 +35,9 @@ from torch.profiler import record_function
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw
+from repro_torch.sharding import rules
+
+META = torch.device("meta")
 
 
 class TrainState(NamedTuple):
@@ -80,10 +97,119 @@ def bind(model: M.LMModel, state: TrainState) -> TrainState:
     return state._replace(params=params)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, remat: bool = True):
+# ---------------------------------------------------------------------------
+# Abstract trees and the layout's spec trees
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Every parameter by name, as a meta tensor (no storage)."""
+    return dict(M.LMModel(cfg, None, META).named_parameters())
+
+
+def abstract_train_state(cfg: ModelConfig, opt_cfg: adamw.OptConfig) -> TrainState:
+    return init_train_state(M.LMModel(cfg, None, META), opt_cfg)
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_seq: int) -> M.Caches:
+    return M.make_cache(cfg, batch, max_seq, META)
+
+
+def use_dp_over_model(cfg: ModelConfig, mesh, batch: int,
+                      hbm_budget_bytes: float = 10e9) -> bool:
+    """True when training should run pure DP (the model axis carries batch
+    blocks): the train state (bf16 params + float32 mu, nu, master = 14 B a
+    parameter) fits a rank at fsdp-only ZeRO sharding, and the global batch
+    divides the whole layout."""
+    if batch % math.prod(mesh.shape.values()):
+        return False
+    n = sum(p.numel() for p in abstract_params(cfg).values())
+    fsdp = math.prod(mesh.shape[a] for a in rules.fsdp_axes(mesh))
+    return n * 14.0 / fsdp <= hbm_budget_bytes
+
+
+def state_shardings(mesh, cfg: ModelConfig, opt_cfg: adamw.OptConfig,
+                    dp_over_model: bool = False) -> TrainState:
+    spec_fn = rules.param_spec_dp if dp_over_model else rules.param_spec
+    return rules.tree_specs(mesh, abstract_train_state(cfg, opt_cfg), spec_fn)
+
+
+def param_shardings(mesh, cfg: ModelConfig, serve: bool = False,
+                    hbm_budget_bytes: float = 10e9) -> Dict[str, tuple]:
+    """Training: ZeRO/FSDP specs.  Serving (serve=True): tensor-parallel-only
+    specs when the weights, whole over the fsdp axes, fit
+    `hbm_budget_bytes` a rank; otherwise the training specs (llama4-400b)."""
+    params = abstract_params(cfg)
+    if serve:
+        total = sum(p.numel() * 2 for p in params.values())
+        if total / mesh.shape.get(rules.MODEL, 1) <= hbm_budget_bytes:
+            return rules.tree_specs(mesh, params, rules.param_spec_serve)
+    return rules.tree_specs(mesh, params, rules.param_spec)
+
+
+def cache_shardings(mesh, cfg: ModelConfig, batch: int, max_seq: int):
+    return rules.tree_specs(mesh, abstract_caches(cfg, batch, max_seq), rules.cache_spec)
+
+
+def logits_shardings(mesh, cfg: ModelConfig, batch: int) -> tuple:
+    """(B, 1, V) decode logits: batch over fsdp, vocab over model."""
+    b_axes = rules.batch_spec(mesh, batch)[0]
+    return rules._spec(mesh, (batch, 1, cfg.vocab_size), (b_axes, None, rules.MODEL))
+
+
+def batch_shardings(mesh, specs: Dict[str, Spec], include_model: bool = False
+                    ) -> Dict[str, tuple]:
+    """The spec of each input (anything with a shape).  include_model: the
+    DP-over-model posture's batch, over every axis it divides (where the
+    reference's activation anchors put it)."""
+    return {k: () if len(v.shape) == 0 else rules.data_spec(mesh, v.shape, include_model)
+            for k, v in specs.items()}
+
+
+def shard_batch(mesh, batch: Dict[str, torch.Tensor], dp_over_model: bool = False
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's block of a global batch, on the layout's device."""
+    specs = batch_shardings(mesh, batch, dp_over_model)
+    return {k: rules.shard_leaf(specs[k], v, mesh.coords).to(mesh.device)
+            for k, v in batch.items()}
+
+
+def shard_state(mesh, state: TrainState, dp_over_model: bool = False) -> TrainState:
+    """This rank's blocks of a whole train state, each a tensor of its own on
+    the layout's device (`runtime.failures.reshard`)."""
+    from repro_torch.runtime.failures import reshard
+    spec_fn = rules.param_spec_dp if dp_over_model else rules.param_spec
+    return reshard(state, mesh, lambda path, leaf: spec_fn(mesh, path, leaf))
+
+
+def state_bytes_per_rank(mesh, cfg: ModelConfig, opt_cfg: adamw.OptConfig,
+                         dp_over_model: bool = False) -> int:
+    """Bytes of one rank's blocks of params, mu, nu and master, by the specs."""
+    st = abstract_train_state(cfg, opt_cfg)
+    specs = state_shardings(mesh, cfg, opt_cfg, dp_over_model)
+    total = 0
+    for tree, tspecs in ((st.params, specs.params), (st.opt.mu, specs.opt.mu),
+                         (st.opt.nu, specs.opt.nu), (st.opt.master, specs.opt.master)):
+        for k, x in (tree or {}).items():
+            total += math.prod(rules.block_shape(tspecs[k], x.shape, mesh)) * x.element_size()
+    return total
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, remat: bool = True,
+                    mesh=None, dp_over_model: bool = False):
     """train_step(model, state, batch) -> (state, metrics): the loss and its
     gradients, one AdamW update; metrics `loss`, `grad_norm` and `lr` at the
-    new count, as the reference's (0-d tensors on the device)."""
+    new count, as the reference's (0-d tensors on the device).
+
+    mesh: an `LMGroups` layout.  Then the step is this rank's part of the
+    FSDP step (`_FSDPStep`): `state` holds the rank's blocks as
+    `state_shardings(mesh, cfg, opt_cfg, dp_over_model)` places them,
+    `batch` is the rank's block of the global batch (`shard_batch`), and
+    `model` is a model of `cfg` whose parameters the step does not read (a
+    meta-device one, `M.LMModel(cfg, None, "meta")`): each unit's gathered
+    weights are put in it while the unit runs."""
+    if mesh is not None:
+        return _FSDPStep(cfg, opt_cfg, remat, mesh, dp_over_model)
+
     def train_step(model: M.LMModel, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         with record_function("lm.train_step"):
             names = list(state.params)
@@ -120,3 +246,185 @@ def make_decode_step(cfg: ModelConfig):
     def serve_step(params, caches, batch):
         return M.forward_decode(params, batch["token"], caches, batch["cache_pos"])
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# The FSDP train step over a layout's fsdp axes
+# ---------------------------------------------------------------------------
+
+class _Leaf(NamedTuple):
+    """How the FSDP step holds one parameter."""
+    dim: Optional[int]            # the dim cut over `axes` (None: whole on every rank)
+    axes: Tuple[str, ...]         # the axes that cut it
+    rest: Tuple[str, ...]         # the layout's other axes (its gradient is summed over them)
+
+
+def _leaf_plan(mesh, name: str, leaf: torch.Tensor) -> _Leaf:
+    spec = rules.param_spec_dp(mesh, (name,), leaf)
+    cuts = [(d, rules.entry_axes(e)) for d, e in enumerate(spec) if e is not None]
+    if len(cuts) > 1:
+        raise ValueError(f"{name}: the DP specs cut one dim, not {spec}")
+    dim, axes = cuts[0] if cuts else (None, ())
+    return _Leaf(dim, axes, tuple(a for a in mesh.axes if a not in axes))
+
+
+class _GatherUnit(torch.autograd.Function):
+    """One unit's weights whole from every rank's blocks: one gather of the
+    blocks packed as bytes (widest dtype first, so every block stays
+    aligned).  The backward reduce-scatters the gradients, one collective
+    per dtype: each rank gets the sum over the group of its block.  Ranges
+    `lm.gather` and `lm.scatter` hold the packing, the collective and the
+    unpacking of each."""
+
+    @staticmethod
+    def forward(ctx, group, dims, *blocks):
+        ctx.group, ctx.dims = group, dims
+        ctx.blocks = [(b.dtype, b.shape) for b in blocks]
+        with record_function("lm.gather"):
+            parts = [b.detach().contiguous().view(-1).view(torch.uint8) for b in blocks]
+            n = sum(p.numel() for p in parts)
+            parts.append(parts[0].new_zeros(-n % 8))        # each rank's row stays 8-aligned
+            rows = group.gather(torch.cat(parts)).view(group.size, -1)
+            out, off = [], 0
+            for dim, b in zip(dims, blocks):
+                nb = b.numel() * b.element_size()
+                got = rows[:, off:off + nb].view(b.dtype).reshape((group.size,) + tuple(b.shape))
+                out.append(torch.cat(got.unbind(0), dim=dim))
+                off += nb
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, size = ctx.group, ctx.group.size
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        with record_function("lm.scatter"):
+            for dtype in dict.fromkeys(dt for dt, _ in ctx.blocks):
+                idx = [i for i, (dt, _) in enumerate(ctx.blocks) if dt == dtype]
+                rows = [grads[i].unflatten(ctx.dims[i], (size, -1)).movedim(ctx.dims[i], 0)
+                        .reshape(size, -1) for i in idx]
+                summed = group.scatter_sum(torch.cat(rows, 1))
+                for i, part in zip(idx, summed.split([r.shape[1] for r in rows])):
+                    out[i] = part.view(ctx.blocks[i][1])
+        return (None, None, *out)
+
+
+@contextlib.contextmanager
+def _bound(slots: Dict[str, Tuple[torch.nn.Module, str]], tensors: Dict[str, torch.Tensor]):
+    """The model's parameters named in `tensors` replaced by them while the
+    block runs (a meta-device model's placeholders put back after)."""
+    saved = {k: slots[k][0]._parameters[slots[k][1]] for k in tensors}
+    try:
+        for k, t in tensors.items():
+            slots[k][0]._parameters[slots[k][1]] = t
+        yield
+    finally:
+        for k, p in saved.items():
+            slots[k][0]._parameters[slots[k][1]] = p
+
+
+class _FSDPStep:
+    """`make_train_step(mesh=)`: this rank's part of the FSDP train step.
+
+    * Units (`models.model`): entering one gathers the whole weights of its
+      cut leaves in one collective over their axes' group (`_GatherUnit`)
+      and puts them in the model; leaving drops them.  Under remat the
+      recomputation gathers again.
+    * Gradients: each rank backpropagates its local mean loss weighted by
+      1 / world, so sums over ranks give the global mean's gradient: a cut
+      leaf's is reduce-scattered over its axes by the gather's backward,
+      then every leaf's is summed over the layout's other axes (one merge
+      per group and dtype): for a leaf whole on every rank, the world.
+    * The optimizer runs on the blocks.  The global norm: each leaf's local
+      sum of squares, counted only on the ranks at coordinate 0 of every
+      axis that holds copies of its block, one merge over the world of the
+      vector of those sums (and the local loss), then the sum in the
+      reference's leaf order (`adamw.norm_of`): at one rank, the
+      single-device step's bits.
+    * With model > 1 only the DP posture is ported; with model == 1 the two
+      postures place the same blocks, and the step plans by the DP specs."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: adamw.OptConfig, remat: bool, mesh,
+                 dp_over_model: bool):
+        if mesh.shape.get(rules.MODEL, 1) > 1 and not dp_over_model:
+            raise NotImplementedError(
+                "tensor parallelism over the model axis is not ported (ROADMAP Queue 1, item "
+                "13 (c)): pass dp_over_model=True, or a layout with model == 1")
+        self.cfg, self.opt_cfg, self.remat, self.mesh = cfg, opt_cfg, remat, mesh
+        self.plan = {k: _leaf_plan(mesh, k, p) for k, p in abstract_params(cfg).items()}
+        self.order = adamw.leaf_order(self.plan)
+        self.counted = {k: not any(mesh.coords[a][0] for a in lf.rest)
+                        for k, lf in self.plan.items()}
+
+    def _unit(self, model: M.LMModel, blocks: Dict[str, torch.Tensor], slots):
+        """The `unit` context of `models.model` for this step's blocks."""
+        names = {id(m): [n for n, _ in m.named_parameters(prefix=prefix)]
+                 for prefix, m in model.named_modules()}
+
+        @contextlib.contextmanager
+        def unit(*modules):
+            groups: Dict[Tuple[str, ...], List[str]] = {}
+            for m in modules:
+                for n in names[id(m)]:
+                    if self.plan[n].dim is not None:
+                        groups.setdefault(self.plan[n].axes, []).append(n)
+            whole = {}
+            for axes, ns in groups.items():
+                ns = sorted(ns, key=lambda n: -blocks[n].element_size())
+                outs = _GatherUnit.apply(self.mesh.group(axes),
+                                         tuple(self.plan[n].dim for n in ns),
+                                         *(blocks[n] for n in ns))
+                whole.update(zip(ns, outs))
+            with _bound(slots, whole):
+                yield
+        return unit
+
+    def _sum_rest(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Every leaf's gradient summed over the layout's axes that do not
+        cut it: one merge per (group, dtype)."""
+        buckets: Dict[tuple, List[str]] = {}
+        for k in self.order:
+            buckets.setdefault((self.plan[k].rest, grads[k].dtype), []).append(k)
+        out = dict(grads)
+        for (rest, _), ks in buckets.items():
+            group = self.mesh.group(rest)
+            if group is None:
+                continue
+            summed = group.merge(torch.cat([grads[k].reshape(-1) for k in ks]))
+            for k, part in zip(ks, summed.split([grads[k].numel() for k in ks])):
+                out[k] = part.view(grads[k].shape)
+        return out
+
+    def __call__(self, model: M.LMModel, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        mesh, world = self.mesh, self.mesh.size
+        with record_function("lm.train_step"):
+            blocks = state.params
+            for p in blocks.values():
+                p.requires_grad_(True)
+            slots = {}
+            for prefix, m in model.named_modules():
+                for attr in m._parameters:
+                    slots[f"{prefix}.{attr}" if prefix else attr] = (m, attr)
+            unit = self._unit(model, blocks, slots)
+            whole = {k: blocks[k] for k, lf in self.plan.items() if lf.dim is None}
+            names = list(blocks)
+            with _bound(slots, whole):
+                with record_function("lm.loss"):
+                    local = M.loss_fn(model, batch["inputs"], batch["labels"],
+                                      remat=self.remat, unit=unit)
+                with record_function("lm.backward"):
+                    weight = torch.full((), 1.0 / world, dtype=local.dtype, device=local.device)
+                    grads = dict(zip(names, torch.autograd.grad(
+                        local, [blocks[k] for k in names], weight)))
+            with record_function("lm.reduce"):
+                grads = self._sum_rest(grads)
+                sums = adamw.square_sums({k: grads[k] for k in self.order if self.counted[k]})
+                zero = torch.zeros((), dtype=torch.float32, device=local.device)
+                total = mesh.world.merge(torch.stack(
+                    [local.detach()] + [sums.get(k, zero) for k in self.order]))
+                loss = total[0] / world
+                gnorm = adamw.norm_of(dict(zip(self.order, total[1:])))
+            with record_function("lm.optim"):
+                params, opt = adamw.update(grads, state.opt, blocks, self.opt_cfg, gnorm=gnorm)
+                metrics = {"loss": loss, "grad_norm": gnorm,
+                           "lr": adamw.schedule(self.opt_cfg, opt.count)}
+            return TrainState(params=params, opt=opt, step=state.step + 1), metrics

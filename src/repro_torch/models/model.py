@@ -23,6 +23,14 @@ audio (hubert)      : encoder (bidirectional), input = precomputed frame
 The reference's sharding anchors (`repro.sharding.hints`) do nothing without
 a mesh; the single-device port calls nothing in their place.
 
+Units: the training forward enters `unit(*modules)`, a context-manager
+factory, around each unit's use of its weights: the embedding (or the
+frontend), each entry of a layer stack, each MoE super-layer, the hybrid's
+shared block at each site, and the unembedding (the tied table or the
+head).  By default it does nothing; the FSDP train step
+(`launch.steps.make_train_step(mesh=)`) gathers the unit's weight blocks
+there and drops them after.  A remat unit's recomputation enters it again.
+
 Training: `forward_train(remat=True)` recomputes each layer in the
 backward (`torch.utils.checkpoint`, the reference's per-layer
 `jax.checkpoint(nothing_saveable)`: each scanned layer, each MoE
@@ -32,7 +40,8 @@ autograd graph.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +57,17 @@ from repro_torch.models.config import ModelConfig
 
 Caches = Dict[str, List[Dict[str, torch.Tensor]]]
 STACKS = ("layers", "dense_prefix", "dense_inter")   # the reference's stacked subtrees
+
+
+def ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """A parameter name's reference leaf path and its row in that leaf (None
+    for a leaf that is not stacked): the stacked groups carry the layer
+    index as their second component ("layers.3.attn.wq" is row 3 of
+    ("layers", "attn", "wq"))."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[0] in STACKS and parts[1].isdigit():
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
 
 
 # ---------------------------------------------------------------------------
@@ -177,31 +197,45 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
     raise ValueError(f"{cfg.family} has no decode cache")
 
 
+Unit = Callable[..., contextlib.AbstractContextManager]
+
+
+def _no_unit(*modules) -> contextlib.AbstractContextManager:
+    """The single-device unit: the weights are the modules' own."""
+    return contextlib.nullcontext()
+
+
 def _unit(body, x, remat: bool):
     """One remat unit: `body(x) -> x`, recomputed in the backward if remat."""
     return checkpoint(body, x, use_reentrant=False) if remat else body(x)
 
 
-def _run(apply_fn, layers, x, cfg, caches, cache_pos, remat=False):
+def _run(apply_fn, layers, x, cfg, caches, cache_pos, remat=False, unit: Unit = _no_unit):
     for i, lp in enumerate(layers):
         if caches is not None:
             x, _ = apply_fn(lp, x, cfg, caches[i], cache_pos)
         else:
-            x = _unit(lambda h, lp=lp: apply_fn(lp, h, cfg)[0], x, remat)
+            def body(h, lp=lp):
+                with unit(lp):
+                    return apply_fn(lp, h, cfg)[0]
+            x = _unit(body, x, remat)
     return x
 
 
-def _hybrid_stack(model: LMModel, x, cfg, caches=None, cache_pos=None, remat=False):
+def _hybrid_stack(model: LMModel, x, cfg, caches=None, cache_pos=None, remat=False,
+                  unit: Unit = _no_unit):
     """Mamba layers with the shared attention block after every k-th layer:
     layer i (i % k == k - 1) is followed by site i // k, with its own cache."""
     k = cfg.shared_attn_every
 
     def body(h, i):
-        h, _ = _mamba_layer_apply(model.layers[i], h, cfg,
-                                  caches["layers"][i] if caches else None, cache_pos)
+        with unit(model.layers[i]):
+            h, _ = _mamba_layer_apply(model.layers[i], h, cfg,
+                                      caches["layers"][i] if caches else None, cache_pos)
         if i % k == k - 1:
             site = caches["shared_attn"][i // k] if caches else None
-            h, _ = _dense_layer_apply(model.shared_attn, h, cfg, site, cache_pos)
+            with unit(model.shared_attn):
+                h, _ = _dense_layer_apply(model.shared_attn, h, cfg, site, cache_pos)
         return h
 
     for i in range(len(model.layers)):
@@ -210,60 +244,70 @@ def _hybrid_stack(model: LMModel, x, cfg, caches=None, cache_pos=None, remat=Fal
 
 
 def backbone(model: LMModel, x: torch.Tensor, caches: Optional[Caches] = None,
-             cache_pos: Optional[int] = None, remat: bool = False) -> torch.Tensor:
+             cache_pos: Optional[int] = None, remat: bool = False,
+             unit: Unit = _no_unit) -> torch.Tensor:
     """Hidden-states trunk shared by train/prefill/decode.  remat (training
     only, no caches): only the units' inputs are kept for the backward."""
     cfg = model.cfg
     c = (lambda name: caches[name]) if caches is not None else (lambda name: None)
     if cfg.family in ("dense", "vlm", "audio"):
-        x = _run(_dense_layer_apply, model.layers, x, cfg, c("layers"), cache_pos, remat)
+        x = _run(_dense_layer_apply, model.layers, x, cfg, c("layers"), cache_pos, remat, unit)
     elif cfg.family == "moe":
         if cfg.first_dense_layers:
             x = _run(_dense_layer_apply, model.dense_prefix, x, cfg, c("dense_prefix"),
-                     cache_pos, remat)
+                     cache_pos, remat, unit)
         step = cfg.moe_layer_step
 
         def super_layer(h, s):
             # (step-1) dense layers then one MoE layer
-            for j in range(s * (step - 1), (s + 1) * (step - 1)):
-                dc = caches["dense_inter"][j] if caches is not None else None
-                h, _ = _dense_layer_apply(model.dense_inter[j], h, cfg, dc, cache_pos)
-            mc = caches["layers"][s] if caches is not None else None
-            h, _ = _moe_layer_apply(model.layers[s], h, cfg, mc, cache_pos)
+            inter = range(s * (step - 1), (s + 1) * (step - 1))
+            with unit(*(model.dense_inter[j] for j in inter), model.layers[s]):
+                for j in inter:
+                    dc = caches["dense_inter"][j] if caches is not None else None
+                    h, _ = _dense_layer_apply(model.dense_inter[j], h, cfg, dc, cache_pos)
+                mc = caches["layers"][s] if caches is not None else None
+                h, _ = _moe_layer_apply(model.layers[s], h, cfg, mc, cache_pos)
             return h
 
         for s in range(len(model.layers)):
             x = _unit(lambda h, s=s: super_layer(h, s), x, remat and caches is None)
     elif cfg.family == "ssm":
-        x = _run(_mamba_layer_apply, model.layers, x, cfg, c("layers"), cache_pos, remat)
+        x = _run(_mamba_layer_apply, model.layers, x, cfg, c("layers"), cache_pos, remat, unit)
     elif cfg.family == "hybrid":
-        x = _hybrid_stack(model, x, cfg, caches, cache_pos, remat)
+        x = _hybrid_stack(model, x, cfg, caches, cache_pos, remat, unit)
     else:
         raise ValueError(cfg.family)
     return model.final_norm(x, cfg.norm_eps)
 
 
-def _logits(model: LMModel, x: torch.Tensor) -> torch.Tensor:
+def _logits(model: LMModel, x: torch.Tensor, unit: Unit = _no_unit) -> torch.Tensor:
     with record_function("lm.logits"):
         if model.cfg.tie_embeddings:
-            return L.unembed(model.embed.table, x)
-        return x.float() @ model.head.w.float()
+            with unit(model.embed):
+                return L.unembed(model.embed.table, x)
+        with unit(model.head):
+            return x.float() @ model.head.w.float()
 
 
-def embed_inputs(model: LMModel, inputs: torch.Tensor) -> torch.Tensor:
+def embed_inputs(model: LMModel, inputs: torch.Tensor, unit: Unit = _no_unit) -> torch.Tensor:
     if model.cfg.family == "audio":
-        return model.frontend(inputs.to(L.ACT_DTYPE))
-    return L.embed(model.embed.table, inputs)
+        with unit(model.frontend):
+            return model.frontend(inputs.to(L.ACT_DTYPE))
+    with unit(model.embed):
+        return L.embed(model.embed.table, inputs)
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward_train(model: LMModel, inputs: torch.Tensor, remat: bool = False) -> torch.Tensor:
+def forward_train(model: LMModel, inputs: torch.Tensor, remat: bool = False,
+                  unit: Unit = _no_unit) -> torch.Tensor:
     """-> f32 logits (B, S, V).  The training forward, the encoder's serve
-    path and the reference the decode path is held against."""
-    return _logits(model, backbone(model, embed_inputs(model, inputs), remat=remat))
+    path and the reference the decode path is held against.  unit: entered
+    around each unit's use of its weights (the module's docstring)."""
+    x = backbone(model, embed_inputs(model, inputs, unit), remat=remat, unit=unit)
+    return _logits(model, x, unit)
 
 
 _LOSS_ROWS = 1024      # rows of logits whose softmax temporaries exist at once
@@ -302,9 +346,9 @@ class _MeanCrossEntropy(torch.autograd.Function):
 
 
 def loss_fn(model: LMModel, inputs: torch.Tensor, labels: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, unit: Unit = _no_unit) -> torch.Tensor:
     """Mean next-token cross-entropy of `labels` (B, S) under the logits."""
-    logits = forward_train(model, inputs, remat=remat)
+    logits = forward_train(model, inputs, remat=remat, unit=unit)
     with record_function("lm.xent"):
         return _MeanCrossEntropy.apply(logits, labels)
 

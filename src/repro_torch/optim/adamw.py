@@ -67,31 +67,37 @@ def init(params: Params, cfg: OptConfig) -> OptState:
                     count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _ref_path(name: str) -> Tuple[Tuple[str, ...], int]:
-    """A parameter name's reference leaf path and its row in that leaf: the
-    stacked groups ("layers", "dense_prefix", "dense_inter") carry the layer
-    index as their second component."""
-    parts = name.split(".")
-    if len(parts) > 2 and parts[1].isdigit() and parts[0] in ("layers", "dense_prefix",
-                                                             "dense_inter"):
-        return (parts[0],) + tuple(parts[2:]), int(parts[1])
-    return tuple(parts), 0
+def _ref_order(name: str) -> Tuple[Tuple[str, ...], int]:
+    """A parameter name's reference leaf path and its row in that leaf (0 for
+    a leaf that is not stacked)."""
+    from repro_torch.models.model import ref_path
+    keys, row = ref_path(name)
+    return keys, row or 0
 
 
 def leaf_order(names) -> list:
     """Names in the reference's leaf order: its flattening sorts dict keys
     at every level, and a stacked leaf's rows follow one another."""
-    return sorted(names, key=_ref_path)
+    return sorted(names, key=_ref_order)
+
+
+def square_sums(tree: Params) -> Params:
+    """The sum of squares of every leaf, in float32."""
+    return {k: torch.sum(torch.square(v.to(torch.float32))) for k, v in tree.items()}
+
+
+def norm_of(sums: Params) -> torch.Tensor:
+    """sqrt of per-leaf sums of squares added in the reference's leaf order."""
+    total = None
+    for k in leaf_order(sums):
+        total = sums[k] if total is None else total + sums[k]
+    return torch.sqrt(total)
 
 
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in float32; the per-leaf sums
     are added in the reference's leaf order."""
-    total = None
-    for k in leaf_order(tree):
-        sq = torch.sum(torch.square(tree[k].to(torch.float32)))
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return norm_of(square_sums(tree))
 
 
 def _decay_mask(name: str) -> bool:
@@ -104,12 +110,14 @@ def _decay_mask(name: str) -> bool:
 
 
 @torch.no_grad()
-def update(grads: Params, state: OptState, params: Params,
-           cfg: OptConfig) -> Tuple[Params, OptState]:
+def update(grads: Params, state: OptState, params: Params, cfg: OptConfig,
+           gnorm: Optional[torch.Tensor] = None) -> Tuple[Params, OptState]:
     """Returns (new_params, new_state), written into `params` and `state`'s
-    tensors (see the module's docstring)."""
+    tensors (see the module's docstring).  gnorm: the gradients' global norm
+    when they are one rank's blocks of a layout (its step reduces it over
+    the ranks); None computes it from `grads`."""
     count = state.count + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, count)
 

@@ -21,9 +21,8 @@ plan_elastic_mesh   largest feasible (data, model) mesh from survivors,
                     keeping the model axis (TP requires full groups) and
                     shrinking the data axis, so re-sharding is a pure
                     re-slice of batch + FSDP dims.
-
-The reference's `reshard` (placing a host-restored tree on a new mesh)
-needs the LM sharding specs, which the port does not have yet.
+reshard             a host-restored tree placed on a (new) layout: each
+                    rank keeps only its own blocks.
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 class TrainingFailure(RuntimeError):
@@ -157,3 +157,27 @@ def plan_elastic_mesh(alive_devices: int, model_parallel: int,
         data_per_pod = pod_size // model_parallel
         return (pods, data_per_pod, model_parallel)
     return (data, model_parallel)
+
+
+def reshard(tree, mesh, spec_fn):
+    """Place a host-restored tree on a (new) layout: this rank keeps its
+    blocks only (`sharding.rules.shard_leaf` by `mesh.coords`), each a
+    tensor of its own on `mesh.device`.
+
+    tree: NamedTuples and dicts of numpy arrays (bfloat16 as ml_dtypes')
+    or tensors, keyed by the port's names (a `TrainState` as a checkpoint
+    restores it); spec_fn(path, leaf) -> spec, with path the keys down to
+    the leaf.  Used after an elastic re-mesh (`plan_elastic_mesh`): the
+    checkpoint is on the host, so placement is a cut of each leaf."""
+    from repro_torch import convert
+    from repro_torch.sharding import rules
+    specs = rules.tree_specs(mesh, tree, lambda _, path, leaf: spec_fn(path, leaf))
+
+    def own(block):
+        if isinstance(block, np.ndarray):
+            return convert._to_torch(block).to(mesh.device)     # a C-order copy
+        if isinstance(block, torch.Tensor):
+            return block.detach().to(mesh.device, copy=True,
+                                     memory_format=torch.contiguous_format)
+        return block
+    return rules.tree_map(own, rules.shard_tree(specs, tree, coords=mesh.coords))

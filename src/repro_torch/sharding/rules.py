@@ -24,15 +24,32 @@ puts the parts back together through the groups' gathers, and
 The port's ensemble keeps one host step counter for every replica (they
 step in lockstep), so `step` is replicated where the reference's (K,)
 step follows the replica axis; a served batch's (K,) numpy counters do.
+
+The LM half (`repro/sharding/rules.py`'s parameter, batch and cache
+specs) states the reference's MaxText-style layout over the axes POD,
+DATA and MODEL in the same tuples, an entry per dim: None (whole), an axis
+name, or a tuple of axis names (the dim cut over those axes together,
+block index row-major over their coordinates, as `NamedSharding` places
+it).  The fsdp axes (pod, data) carry ZeRO-3 weight and optimizer shards
+and the batch; MODEL carries heads, ffn, experts, vocab and SSM heads.  A
+port leaf's spec is the reference leaf's with the leading stacked entry
+dropped: the port splits the reference's stacked (L, ...) layer leaves
+into one parameter per layer (`models/model.py`), and divisibility is
+checked on the same dims.  `shard_leaf` cuts a whole value to a rank's
+block by a layout's coordinates, `unshard_leaf` gathers it back through
+the groups of the named axes, and `gather_leaf_to_host` brings it to the
+host of the layout's rank 0 through the same groups.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+import math
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 ENSEMBLE, DATA = "ensemble", "data"
+POD, MODEL = "pod", "model"                 # the LM layout's other axes
 ROW, SLOT, REPLICATED = "row", "slot", "replicated"
 _NAMED = {ROW: (DATA,), SLOT: (DATA,), REPLICATED: ()}
 
@@ -127,16 +144,51 @@ def _cut(x, dim: int, lo: int, hi: int):
     return np.asarray(x)[(slice(None),) * dim + (slice(lo, hi),)]
 
 
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axes one spec entry names: () for None, (name,) for a name."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_of(axes: Sequence[str], coords: Dict[str, Tuple[int, int]]) -> Tuple[int, int]:
+    """(index, count) of a rank's block of a dim cut over `axes` together:
+    row-major over their (coordinate, size) pairs in `coords`."""
+    index, count = 0, 1
+    for a in axes:
+        c, n = coords[a]
+        index, count = index * n + c, count * n
+    return index, count
+
+
+def coords_of(axes: Sequence[str], sizes: Sequence[int], rank: int
+              ) -> Dict[str, Tuple[int, int]]:
+    """(coordinate, size) on each axis of the rank numbered `rank` row-major
+    over `axes` of `sizes` (the inverse of `block_of`)."""
+    out, rest = {}, rank
+    for a, n in reversed(list(zip(axes, sizes))):
+        out[a] = (rest % n, n)
+        rest //= n
+    return out
+
+
+def shard_leaf(spec, x, coords: Dict[str, Tuple[int, int]]):
+    """A rank's block of the whole value x (views of x): every dim the spec
+    cuts narrowed to the rank's block of it, by its (coordinate, size) on
+    each axis (`coords`, as a layout's `coords` gives them)."""
+    for dim, entry in enumerate(axes_of(spec)):
+        axes = entry_axes(entry)
+        if axes:
+            lo, hi = rows_of(*block_of(axes, coords), x.shape[dim])
+            x = _cut(x, dim, lo, hi)
+    return x
+
+
 def shard(kind, x, rank: int, size: int, coord: int = 0, ensemble: int = 1):
     """Rank's part of the whole value x: every dim the spec names "data" cut
     to block `rank` of `size`, every dim it names "ensemble" to block
     `coord` of `ensemble` (views of x)."""
-    for dim, axis in enumerate(axes_of(kind)):
-        if axis is not None:
-            lo, hi = rows_of(*((rank, size) if axis == DATA else (coord, ensemble)),
-                             x.shape[dim])
-            x = _cut(x, dim, lo, hi)
-    return x
+    return shard_leaf(kind, x, {DATA: (rank, size), ENSEMBLE: (coord, ensemble)})
 
 
 def gather_dim(group, x, dim: int):
@@ -150,61 +202,254 @@ def gather_dim(group, x, dim: int):
     return group.gather(x.movedim(dim, 0)).movedim(0, dim)
 
 
-def unshard(kind, x, group, ensemble_group=None):
-    """The whole value from every rank's part x (a collective for every dim
-    the spec names: all ranks of the group must call it).  group gathers
-    the data dims, ensemble_group the replica dims (None: one block)."""
-    for dim, axis in enumerate(axes_of(kind)):
-        g = group if axis == DATA else ensemble_group
-        if axis is not None and g is not None:
+def unshard_leaf(spec, x, group_of: Callable):
+    """The whole value from every rank's block x: each cut dim gathered
+    through `group_of(axes)`, the group of the axes that cut it, whose rank
+    order is the blocks' (a collective for every such dim; None: one
+    block, nothing to gather)."""
+    for dim, entry in enumerate(axes_of(spec)):
+        axes = entry_axes(entry)
+        g = group_of(axes) if axes else None
+        if g is not None:
             x = gather_dim(g, x, dim)
     return x
 
 
-def gather_to_host(kind, x, group, ensemble_group=None):
-    """The whole value from every rank's part x on the host of the layout's
-    rank 0 (data rank 0 of ensemble coordinate 0), None on every other rank
-    (collective over both groups).  The parts travel one at a time
-    (`Group.gather_to_host`): over the ensemble group to coordinate 0, then
-    over its data group to data rank 0, so no device holds more than its
-    own part and one more.  A numpy leaf comes back as numpy; a host
-    scalar is replicated and comes back as it is."""
-    axes = axes_of(kind)
-    home = group.rank == 0 and (ensemble_group is None or ensemble_group.rank == 0)
+def unshard(kind, x, group, ensemble_group=None):
+    """The whole value from every rank's part x (a collective for every dim
+    the spec names: all ranks of the group must call it).  group gathers
+    the data dims, ensemble_group the replica dims (None: one block)."""
+    return unshard_leaf(kind, x, {(DATA,): group, (ENSEMBLE,): ensemble_group}.get)
+
+
+def gather_leaf_to_host(spec, x, group_of: Callable, coords: Dict[str, Tuple[int, int]]):
+    """The whole value from every rank's block x on the host of the layout's
+    rank 0 (coordinate 0 on every axis of `coords`, a layout's (coordinate,
+    size) by axis), None on every other rank (collective).  Only the ranks
+    at coordinate 0 of every axis the spec does not cut send: the others
+    hold copies.  Each cut dim's blocks travel through `group_of(axes)`,
+    the group of the axes that cut it (None: one block), to that group's
+    rank 0, dim after dim (`Group.gather_to_host`: one block at a time, so
+    no device holds more than its own block and one more), and are put in
+    place on the host.  A numpy leaf comes back as numpy; a host scalar is
+    replicated and comes back as it is."""
+    home = not any(c for c, _ in coords.values())
     if not isinstance(x, (torch.Tensor, np.ndarray)):
         return x if home else None
-    blocks = [torch.as_tensor(x)]
-    if ENSEMBLE in axes and ensemble_group is not None:
-        got = ensemble_group.gather_to_host(blocks)
-        if got is None:
-            return None
-        blocks = [b[0] for b in got]
-    if DATA in axes:
-        got = group.gather_to_host(blocks)
-        if got is None:
-            return None
-        d = axes.index(DATA)
-        blocks = [torch.cat([part[c] for part in got], d) for c in range(len(blocks))]
-    if not home:
+    entries = [entry_axes(e) for e in axes_of(spec)]
+    cut = {a for axes in entries for a in axes}
+    if any(c for a, (c, _) in coords.items() if a not in cut):
         return None
-    out = torch.cat(blocks, axes.index(ENSEMBLE)) if len(blocks) > 1 else blocks[0].cpu()
-    return out.numpy() if isinstance(x, np.ndarray) else out
+    t = torch.as_tensor(x)
+    blocks, sizes = {(): t}, {}
+    for dim, axes in enumerate(entries):
+        group = group_of(axes) if axes else None
+        if group is None:
+            continue
+        got = group.gather_to_host(list(blocks.values()))
+        if got is None:
+            return None
+        sizes[dim] = group.size
+        blocks = {key + ((dim, r),): part
+                  for r, parts in enumerate(got) for key, part in zip(blocks, parts)}
+    if not sizes:
+        whole = t.cpu()
+    else:
+        whole = torch.empty([n * sizes.get(d, 1) for d, n in enumerate(t.shape)], dtype=t.dtype)
+        for key, part in blocks.items():
+            index = [slice(None)] * t.dim()
+            for d, r in key:
+                index[d] = slice(r * t.shape[d], (r + 1) * t.shape[d])
+            whole[tuple(index)] = part
+    return whole.numpy() if isinstance(x, np.ndarray) else whole
 
 
 def shard_tree(specs: Any, tree: Any, rank: int = 0, size: int = 1, coord: int = 0,
-               ensemble: int = 1) -> Any:
-    """`shard` over a tree and its tree of specs."""
-    return tree_map(lambda x, s: shard(s, x, rank, size, coord, ensemble), tree, specs)
+               ensemble: int = 1, coords: Dict[str, Tuple[int, int]] | None = None) -> Any:
+    """`shard` over a tree and its tree of specs; with `coords` (a layout's
+    (coordinate, size) by axis), `shard_leaf` by those instead."""
+    coords = coords or {DATA: (rank, size), ENSEMBLE: (coord, ensemble)}
+    return tree_map(lambda x, s: shard_leaf(s, x, coords), tree, specs)
 
 
-def unshard_tree(specs: Any, tree: Any, group=None, ensemble_group=None) -> Any:
-    """`unshard` over a tree and its tree of specs (collective)."""
-    return tree_map(lambda x, s: unshard(s, x, group, ensemble_group), tree, specs)
+def unshard_tree(specs: Any, tree: Any, group=None, ensemble_group=None,
+                 group_of: Callable | None = None) -> Any:
+    """`unshard` over a tree and its tree of specs (collective); with
+    `group_of` (a layout's `group`), `unshard_leaf` through it instead."""
+    group_of = group_of or {(DATA,): group, (ENSEMBLE,): ensemble_group}.get
+    return tree_map(lambda x, s: unshard_leaf(s, x, group_of), tree, specs)
 
 
-def gather_tree_to_host(specs: Any, tree: Any, group, ensemble_group=None) -> Any:
-    """`gather_to_host` over a tree and its tree of specs (collective): the
-    whole tree on the layout's rank 0, None on every other rank."""
-    whole = tree_map(lambda x, s: gather_to_host(s, x, group, ensemble_group), tree, specs)
-    home = group.rank == 0 and (ensemble_group is None or ensemble_group.rank == 0)
-    return whole if home else None
+def gather_tree_to_host(specs: Any, tree: Any, group=None, ensemble_group=None,
+                        group_of: Callable | None = None,
+                        coords: Dict[str, Tuple[int, int]] | None = None) -> Any:
+    """`gather_leaf_to_host` over a tree and its tree of specs (collective):
+    the whole tree on the layout's rank 0, None on every other rank.  The
+    simulator's layout is its data group and ensemble group (None: one
+    replica block); with `group_of` and `coords` (an LM layout's `group`
+    and `coords`), those instead."""
+    if group_of is None:
+        group_of = {(DATA,): group, (ENSEMBLE,): ensemble_group}.get
+        coords = {DATA: (group.rank, group.size), ENSEMBLE: (0, 1) if ensemble_group is None
+                  else (ensemble_group.rank, ensemble_group.size)}
+    whole = tree_map(lambda x, s: gather_leaf_to_host(s, x, group_of, coords), tree, specs)
+    return None if any(c for c, _ in coords.values()) else whole
+
+
+# -- the LM layout: parameter, batch and cache specs -----------------------------
+
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    """The layout's ZeRO axes, (pod, data) or (data,).  `mesh` is anything
+    with a `shape` mapping axis -> size (`launch.mesh.LMGroups`)."""
+    return tuple(a for a in (POD, DATA) if a in mesh.shape)
+
+
+def _fits(mesh, dim: int, axes) -> bool:
+    if axes is None or dim <= 0:
+        return True
+    return dim % math.prod(mesh.shape[a] for a in entry_axes(axes)) == 0
+
+
+def _spec(mesh, shape: Sequence[int], wanted: Sequence) -> tuple:
+    """Drop axis assignments that don't divide the dim (with fallback)."""
+    return tuple(a if _fits(mesh, d, a) else None for d, a in zip(shape, wanted))
+
+
+def ref_leaf(path) -> Tuple[Tuple[str, ...], bool]:
+    """The reference tree's key path of a port parameter and whether it is
+    a row of a stacked leaf.  `path` is a tree path whose last key is the
+    parameter's name ("layers.3.attn.wq"), or that name."""
+    from repro_torch.models.model import ref_path
+    name = path if isinstance(path, str) else path[-1]
+    keys, row = ref_path(str(name))
+    return keys, row is not None
+
+
+def _param_spec_ref(mesh, keys: Tuple[str, ...], shape: Sequence[int]) -> tuple:
+    """The reference's `param_spec` of the leaf at `keys` of (stacked) shape."""
+    fsdp = fsdp_axes(mesh)
+    name, rank = keys[-1], len(shape)
+
+    def build(*tail):
+        """Pad with leading None for stacked-layer dims."""
+        return _spec(mesh, shape, (None,) * (rank - len(tail)) + tail)
+
+    experts = "moe" in keys
+    if name == "table":                       # embedding (V, d)
+        return build(MODEL, fsdp)
+    if name in ("wq", "wk", "wv", "wi", "wg", "in_proj", "w_dkv", "w_kr"):
+        if name in ("wi", "wg") and rank >= 3 and experts:    # (.., E, d, f)
+            return build(MODEL, fsdp, None)
+        return build(fsdp, MODEL)
+    if name == "wo":
+        if rank >= 3 and experts:
+            return build(MODEL, None, fsdp)
+        return build(MODEL, fsdp)
+    if name == "out_proj":
+        return build(MODEL, fsdp)
+    if name == "w":                            # head / frontend (d_in, d_out)
+        return build(fsdp, MODEL)
+    if name == "router":
+        return build(fsdp, None)
+    if name in ("w_uk", "w_uv"):               # (r, H, n)
+        return build(None, MODEL, None)
+    if name == "conv_w":                       # (W, C)
+        return build(None, MODEL)
+    if name in ("a_log", "d_skip", "dt_bias", "bq", "bk", "bv"):   # (H,), (H*hd,)
+        return build(MODEL)
+    return (None,) * rank                      # norm scales, small biases: whole
+
+
+def param_spec(mesh, path, leaf) -> tuple:
+    """The training (ZeRO + tensor-parallel) spec of one parameter: the
+    reference's spec of its leaf, less the stacked entry of a layer row.
+    Also the spec of its optimizer leaves (same name, last key of `path`);
+    a scalar ("count", "step") is whole."""
+    keys, stacked = ref_leaf(path)
+    spec = _param_spec_ref(mesh, keys, (0,) * stacked + tuple(leaf.shape))
+    return spec[stacked:]
+
+
+def _strip_axes(spec: tuple, strip: set) -> tuple:
+    cleaned = []
+    for part in spec:
+        if part is None:
+            cleaned.append(None)
+        elif isinstance(part, (tuple, list)):
+            kept = tuple(a for a in part if a not in strip)
+            cleaned.append(kept if kept else None)
+        else:
+            cleaned.append(None if part in strip else part)
+    return tuple(cleaned)
+
+
+def param_spec_serve(mesh, path, leaf) -> tuple:
+    """Serving posture: tensor-parallel over MODEL only, whole over the
+    fsdp axes (a serving step has no optimizer state to shard)."""
+    return _strip_axes(param_spec(mesh, path, leaf), set(fsdp_axes(mesh)))
+
+
+def param_spec_dp(mesh, path, leaf) -> tuple:
+    """DP-over-model training posture: weights ZeRO-cut over the fsdp axes,
+    whole over MODEL, which carries batch blocks instead (no per-layer
+    tensor-parallel reduction; gradients reduce once a step)."""
+    return _strip_axes(param_spec(mesh, path, leaf), {MODEL})
+
+
+def batch_spec(mesh, batch: int, include_model: bool = False) -> tuple:
+    """The batch dim over (pod, data[, model]) by divisibility fallback;
+    include_model=True is the DP-over-model posture."""
+    fsdp = fsdp_axes(mesh)
+    if include_model and _fits(mesh, batch, fsdp + (MODEL,)):
+        return (fsdp + (MODEL,),)
+    if _fits(mesh, batch, fsdp):
+        return (fsdp,)
+    if _fits(mesh, batch, DATA):
+        return (DATA,)
+    return (None,)
+
+
+def data_spec(mesh, shape: Sequence[int], include_model: bool = False) -> tuple:
+    """(B, S) token batches / (B, S, F) feature batches."""
+    return batch_spec(mesh, shape[0], include_model) + (None,) * (len(shape) - 1)
+
+
+def cache_spec(mesh, path, leaf) -> tuple:
+    """Decode caches, batch over fsdp, sequence (or SSM heads, conv
+    channels) over MODEL: the reference's spec of its stacked leaf, whose
+    rows are the port's per-layer caches, less the stacked entry."""
+    fsdp = fsdp_axes(mesh)
+    name = str(path if isinstance(path, str) else path[-1])
+    shape = (0,) + tuple(leaf.shape)
+    wanted = {"k": (None, fsdp, MODEL, None, None),      # (L, B, S, KV, hd)
+              "v": (None, fsdp, MODEL, None, None),
+              "c": (None, fsdp, MODEL, None),             # (L, B, S, r)
+              "kr": (None, fsdp, MODEL, None),
+              "ssm": (None, fsdp, MODEL, None, None),     # (L, B, H, N, P)
+              "conv": (None, fsdp, None, MODEL)}          # (L, B, W-1, C)
+    if name in wanted:
+        return _spec(mesh, shape, wanted[name])[1:]
+    return (None,) * len(leaf.shape)
+
+
+def tree_specs(mesh, tree: Any, spec_fn: Callable, path: tuple = ()) -> Any:
+    """`spec_fn(mesh, path, leaf)` for every leaf of a tree of NamedTuples,
+    dicts, lists and tuples (None stays None); a path is the tuple of keys
+    (field names, dict keys, list indices) down to the leaf."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_specs(mesh, v, spec_fn, path + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, dict):
+        return {k: tree_specs(mesh, v, spec_fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_specs(mesh, v, spec_fn, path + (i,))
+                          for i, v in enumerate(tree))
+    return spec_fn(mesh, path, tree)
+
+
+def block_shape(spec, shape: Sequence[int], mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a whole value of `shape`."""
+    return tuple(d // math.prod(mesh.shape[a] for a in entry_axes(e))
+                 for d, e in zip(shape, tuple(axes_of(spec)) + (None,) * len(shape)))

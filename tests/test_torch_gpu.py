@@ -449,3 +449,54 @@ def test_lm_train_steps_on_card_are_deterministic(cuda_device, name):
             a = ends[0].params if part == "params" else getattr(ends[0].opt, part)
             b = ends[1].params if part == "params" else getattr(ends[1].opt, part)
             assert torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8)), (part, k)
+
+
+@pytest.mark.gpu
+def test_lm_fsdp_step_on_a_one_rank_nccl_layout_equals_single_device(cuda_device, tmp_path):
+    """The FSDP step (`make_train_step(mesh=)`) on a 1 x 1 NCCL layout against
+    the single-device step, two steps of reduced qwen2-0.5b in bf16 from one
+    state and batch: equal bits in the loss, the grad norm, every gradient
+    leaf (taken as the step hands it to AdamW) and every leaf of params, mu,
+    nu and master; one gather per unit went through NCCL."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg, opt_cfg = _train_cfg("qwen2-0.5b"), adamw.OptConfig(warmup_steps=2, total_steps=10)
+    taps, update = [], adamw.update
+
+    def tapped(grads, *args, **kwargs):
+        taps.append({k: v.clone() for k, v in grads.items()})
+        return update(grads, *args, **kwargs)
+
+    layout = mesh.make_host_mesh(1, 1, f"file://{tmp_path}/rendezvous", 0, cuda_device)
+    try:
+        layout = layout.counting()
+        model = M.init_params(cfg, 0, cuda_device)
+        start = steps.clone_state(steps.init_train_state(model, opt_cfg))
+        single = steps.make_train_step(cfg, opt_cfg)
+        fsdp = steps.make_train_step(cfg, opt_cfg, mesh=layout, dp_over_model=True)
+        st, mst = steps.bind(model, steps.clone_state(start)), steps.shard_state(layout, start)
+        skeleton = M.LMModel(cfg, None, "meta")
+        adamw.update = tapped
+        for i in range(2):
+            batch = make_batch(cfg, DataConfig(seed=2), i, 4, 64, cuda_device)
+            st, ms = single(model, st, batch)
+            layout.reset_counts()
+            mst, mm = fsdp(skeleton, mst, steps.shard_batch(layout, batch, True))
+            for k in ("loss", "grad_norm", "lr"):
+                assert torch.equal(ms[k], mm[k]), (i, k)
+            want, got = taps[-2:]
+            for k, g in want.items():
+                assert torch.equal(g.view(torch.uint8), got[k].view(torch.uint8)), (i, k)
+            assert layout.counts()["data"]["gather"]["calls"] == 2 + 2 * cfg.num_layers
+        for part in ("params", "mu", "nu", "master"):
+            a = st.params if part == "params" else getattr(st.opt, part)
+            b = mst.params if part == "params" else getattr(mst.opt, part)
+            for k in a:
+                assert torch.equal(a[k].detach().view(torch.uint8),
+                                   b[k].detach().view(torch.uint8)), (part, k)
+    finally:
+        adamw.update = update
+        dist.destroy_process_group()
