@@ -153,13 +153,31 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              for qwen2-0.5b at TRAIN_4K on 16 x 16 and 2 x 16 x 16 in both
              postures.
 
+19. lm_serve_mesh — the LM's serving path over a layout
+             (`make_prefill_step(cfg, mesh=)`, `make_decode_step(cfg, mesh=)`,
+             `sharding/hints.py`, `models/tp.py`), which launches none of
+             the three kernels: (a) deepseek-v2-lite-16b whole on a 1 x 1
+             NCCL layout at phase 16's 8 x 1024 + 64 greedy tokens through
+             `lm_serve.generate(mesh=)` (the tensor-parallel code at full
+             width: every sum over the model axis a copy), then its 64
+             decode steps teacher-forced with (b)'s tokens; (b) the same on
+             one device from the same seed, first, its model freed before
+             (a) draws its own: logits within LM_MESH_TOL on the rows whose
+             routes agree, routes differing only at near ties and at most
+             LM_MESH_MAX_FLIPS times, greedy-token agreement; prefill ms
+             and tokens/s, decode ms a step, peaks of both, the census of
+             one prefill and one decode step, a profiled decode step of
+             each, the held bytes against the specs; (c) the other nine configs at full width, depth cut as
+             phase 16 (d), a prefill and four decode steps on the layout
+             against one device.
+
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
 m2m, probes, serve) zeroes the launch counts just before it and reads them
 just after; dist and sweep2d do so around each distributed engine run (and
 dist around each emulated per-rank descent), so the single-device runs they
 compare with are not counted; lm, train and lm_mesh zero them before their
-runs and require them still 0 after.  lm serves under the port's own
+runs and require them still 0 after, as lm_serve_mesh does.  lm serves under the port's own
 `torch.inference_mode()`, so its peak memory shows that serving builds no
 graph; only its `forward_train` reference passes run under
 `torch.no_grad()`.  The script prints the card's
@@ -555,8 +573,8 @@ def phase_main(seed: int) -> dict:
 
 def profile_window(fn, top: int = 6) -> dict:
     """torch.profiler over fn(): wall time, device busy time (sum of kernel
-    times), the number of device operations, device time per layer range
-    and the `top` costliest operators."""
+    times), the number of device operations, device and host time per layer
+    range and the `top` costliest operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -573,6 +591,8 @@ def profile_window(fn, top: int = 6) -> dict:
     ranges = ("step", "update", "pyramid", "traversal", "bh", "direct", "slots", "serve", "lm")
     layers = {e.key: round(e.device_time_total / 1e3, 3) for e in events
               if e.device_type == DeviceType.CPU and e.key.split(".")[0] in ranges}
+    host = {e.key: round(e.cpu_time_total / 1e3, 3) for e in events
+            if e.device_type == DeviceType.CPU and e.key.split(".")[0] in ranges}
     # Kernels, copies and memsets run on the card (the ranges' device-side
     # copies left out).
     device_ops = sum(e.count for e in events if e.device_type == DeviceType.CUDA
@@ -582,7 +602,7 @@ def profile_window(fn, top: int = 6) -> dict:
                  key=lambda e: -e.self_device_time_total)[:top]
     return dict(wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
                 idle_share=round(1 - busy / wall, 3), device_ops=device_ops,
-                layers_device_ms=layers,
+                layers_device_ms=layers, layers_host_ms=host,
                 top_ops_device_ms={e.key: round(e.self_device_time_total / 1e3, 3)
                                    for e in ops})
 
@@ -3018,6 +3038,255 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the LM's serving path over a layout
+# ---------------------------------------------------------------------------
+
+# (a) against (b): at one rank the layout's steps run the tensor-parallel
+# code with every sum over the model axis a copy, the row-cut products as
+# the bf16 GEMM with a float32 output (one device's accumulation, rounded
+# once after the sum) and decode's two-level softmax, whose float32 weights
+# may differ from torch.softmax's in the last bit.  So the logits should
+# agree to a few bf16 ulps of rounding at most; they are held within
+# LM_MESH_TOL (the 0.05 in logits at which the CPU tests hold the port to
+# the reference op by op) on every row whose routes agree so far, a route
+# may differ only at a near tie (LM_MARGIN) and for at most
+# LM_MESH_MAX_FLIPS (token, routing call) pairs (phase 17 (c)'s allowance).
+LM_MESH_TOL = 0.05
+LM_MESH_MAX_FLIPS = TRAIN_MAX_FLIPS
+LM_MESH_DEPTH_DECODES = 4          # (c): one prefill and four decode steps a config
+
+
+def compact_counts(counts: dict) -> dict:
+    """A census with only the collectives that ran: calls and bytes."""
+    return {grp: {n: dict(calls=c["calls"], bytes=c["bytes"]) for n, c in cs.items()
+                  if c["calls"]} for grp, cs in counts.items()}
+
+
+def serve_held(layout, cfg, blocks) -> dict:
+    """Bytes of the rank's weight and cache blocks, against `block_shape`
+    arithmetic over the specs."""
+    import math
+    from repro_torch.launch import steps
+    from repro_torch.sharding import rules
+    wspecs = steps.param_shardings(layout, cfg, serve=True)
+    whole = steps.abstract_params(cfg)
+    caches = steps.make_cache(layout, cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    cspecs = steps.cache_shardings(layout, cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    abstract = steps.abstract_caches(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    out = dict(
+        weights=sum(p.numel() * p.element_size() for p in blocks.parameters()),
+        weights_by_specs=sum(v.element_size() * math.prod(rules.block_shape(wspecs[k], v.shape,
+                                                                             layout))
+                             for k, v in whole.items()),
+        caches=sum(t.numel() * t.element_size() for layers in caches.values()
+                   for c in layers for t in c.values()),
+        caches_by_specs=sum(v.element_size() * math.prod(rules.block_shape(cspecs[g][i][k],
+                                                                            v.shape, layout))
+                            for g, layers in abstract.items() for i, c in enumerate(layers)
+                            for k, v in c.items()))
+    if out["weights"] != out["weights_by_specs"] or out["caches"] != out["caches_by_specs"]:
+        raise AssertionError(f"lm_serve_mesh: held bytes differ from the specs' {out}")
+    return out
+
+
+def serve_steps(cfg, model, prompts, token, layout=None) -> dict:
+    """One prefill and one decode step through the steps (on the layout:
+    the census of each, calls and bytes of each collective by group), then
+    a second decode step under the profiler."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    caches = (M.make_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, LM_DEV) if layout is None
+              else steps.make_cache(layout, cfg, LM_BATCH, LM_PROMPT + LM_NEW))
+    if layout is not None:
+        prompts, token = (steps.shard_batch(layout, {"x": t})["x"] for t in (prompts, token))
+    decode = steps.make_decode_step(cfg, layout)
+    out = {}
+    for name, step, batch in (
+            ("prefill", steps.make_prefill_step(cfg, layout), {"inputs": prompts}),
+            ("decode", decode, {"token": token, "cache_pos": LM_PROMPT})):
+        if layout is not None:
+            layout.reset_counts()
+        step(model, caches, batch)
+        if layout is not None:
+            out.setdefault("census", {})[name] = compact_counts(layout.counts())
+    out["profile_decode"] = profile_window(
+        lambda: decode(model, caches, {"token": token, "cache_pos": LM_PROMPT + 1}), top=6)
+    return out
+
+
+def mesh_serve_run(cfg, seed: int, layout=None, teacher=None) -> dict:
+    """deepseek-v2-lite-16b whole from `seed`, on one device or the layout
+    (the rank's blocks: at one rank the drawn tensors themselves): the
+    lm_serve flow (prefill 8 x 1024, 64 greedy tokens), then the 64 decode
+    steps teacher-forced with `teacher` (its own tokens when None) under the
+    route log; the logits and routes kept on the host, the model freed."""
+    from repro_torch.launch import lm_serve, steps
+    from repro_torch.models import model as M
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, seed, LM_DEV)
+    prompts = lm_tokens(cfg, LM_BATCH, LM_PROMPT, seed)
+    out = {}
+    if layout is not None:
+        model = steps.shard_params(layout, cfg, model)
+        out["held"] = serve_held(layout, cfg, model)
+    # The census and the profiled step first: they also warm what the timed
+    # run would otherwise pay for once (the layout's NCCL communicators start
+    # on their first collective), as phase 16 times its second run.
+    out.update(serve_steps(cfg, model, prompts, prompts[:, -1:], layout))
+    res = lm_serve.generate(model, prompts, LM_NEW, mesh=layout)
+    if not res.all_finite:
+        raise AssertionError("lm_serve_mesh: a served logit is not finite")
+    teacher = res.tokens if teacher is None else teacher.to(prompts.device)
+    with RouteLog() as rl:
+        logits = [x.cpu() for x in lm_serve.score(model, torch.cat([prompts, teacher], 1),
+                                                   LM_PROMPT, mesh=layout)]
+    out.update(tokens=res.tokens.cpu(), prefill_ms=res.prefill_ms,
+               prefill_tok_s=LM_BATCH * LM_PROMPT / res.prefill_ms * 1e3,
+               step_ms=res.step_ms, decode_step_ms=float(np.median(res.step_ms[1:])),
+               logits=logits, routes=[(e.cpu(), p.cpu()) for e, p in rl.calls],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_vs_single(tag: str, cfg, got: dict, want: dict) -> dict:
+    """The layout's teacher-forced logits against one device's: routes equal
+    but at near ties, at most LM_MESH_MAX_FLIPS flipped (token, call) pairs,
+    and every row whose routes agree so far within LM_MESH_TOL."""
+    diffs = route_diff(got["routes"], want["routes"], cfg.top_k) if cfg.num_experts else []
+    flips = sum(int((~same).sum()) for same, _, _ in diffs)
+    steps_n = len(want["logits"])
+    per = len(diffs) // steps_n
+    first = next(((i // per, i % per) for i, (same, _, _) in enumerate(diffs)
+                  if not same.all()), None)
+    where = (f"first differing route at step {first[0]} (0: prefill), MoE layer {first[1]}; "
+             f"prefill logits differ by {float((got['logits'][0] - want['logits'][0]).abs().max())}"
+             if first else "")
+    for same, margin, _ in diffs:
+        if (~same & (margin > LM_MARGIN)).any():
+            raise AssertionError(f"{tag}: a route differs at a margin "
+                                 f"{float(margin[~same].max())} > {LM_MARGIN}; {where}")
+    if flips > LM_MESH_MAX_FLIPS:
+        raise AssertionError(f"{tag}: {flips} routes differ (> {LM_MESH_MAX_FLIPS}); {where}")
+    b = want["logits"][0].shape[0]
+    flipped = torch.zeros(b, dtype=torch.bool)
+    worst, worst_prefill, mean, kept = 0.0, 0.0, 0.0, 0
+    for j, (g, w) in enumerate(zip(got["logits"], want["logits"], strict=True)):
+        for same, _, _ in diffs[j * per:(j + 1) * per]:
+            flipped |= ~same.all(dim=1)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: step {j} logits not finite")
+        rows = ~flipped
+        if rows.any():
+            d = (g[rows] - w[rows]).abs()
+            worst, mean = max(worst, float(d.max())), max(mean, float(d.mean()))
+            worst_prefill = worst if j == 0 else worst_prefill
+        kept += int(rows.sum())
+    if worst > LM_MESH_TOL or 2 * kept <= steps_n * b:
+        raise AssertionError(f"{tag}: layout vs one device max {worst} (> {LM_MESH_TOL}?), "
+                             f"{kept} of {steps_n * b} rows kept")
+    return dict(max_diff=worst, max_diff_prefill=worst_prefill, max_mean_diff=mean,
+                rows=kept, of=steps_n * b, routes_flipped=flips)
+
+
+def mesh_full_width(layout, seed: int) -> dict:
+    """(c) the other nine configs at full width, depth cut as phase 16 (d):
+    one prefill and LM_MESH_DEPTH_DECODES decode steps (the encoder: its
+    encode step) on the layout and on one device, from one model."""
+    from repro_torch import configs
+    from repro_torch.launch import lm_serve, steps
+    from repro_torch.models import model as M
+    out = {}
+    for name, base in configs.ARCHS.items():
+        if name == LM_SERVED:
+            continue
+        cfg = no_overflow(dataclasses.replace(base, num_layers=LM_DEPTH.get(name, 2)))
+        t = time.perf_counter()
+        model = M.init_params(cfg, seed, LM_DEV)
+        blocks = steps.shard_params(layout, cfg, model)
+        toks = lm_tokens(cfg, 2, 128, seed)
+        if cfg.is_encoder:
+            got = steps.make_prefill_step(cfg, layout)(blocks, {"inputs": toks})
+            want = steps.make_prefill_step(cfg)(model, {"inputs": toks})
+            d = float((steps.gather_logits(layout, cfg, got, 2) - want).abs().max())
+            if not torch.isfinite(got).all() or d > LM_MESH_TOL:
+                raise AssertionError(f"lm_serve_mesh (c) {name}: encode differs by {d}")
+            res = dict(max_diff=d)
+        else:
+            prompt = 128 - LM_MESH_DEPTH_DECODES
+            runs = []
+            for m, lay in ((blocks, layout), (model, None)):
+                with RouteLog() as rl:
+                    lg = [x.cpu() for x in lm_serve.score(m, toks, prompt, mesh=lay)]
+                runs.append(dict(logits=lg, routes=[(e.cpu(), p.cpu()) for e, p in rl.calls]))
+            res = mesh_vs_single(f"lm_serve_mesh (c) {name}", cfg, *runs)
+        res.update(layers=cfg.num_layers, seconds=time.perf_counter() - t)
+        out[name] = res
+        del model, blocks
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_serve_mesh(seed: int, lm: dict, card: str) -> dict:
+    """19. lm_serve_mesh: deepseek-v2-lite-16b served whole through
+    `make_prefill_step(cfg, mesh=)` and `make_decode_step(cfg, mesh=)` on a
+    1 x 1 NCCL layout against one device from the same seed; the other nine
+    configs at full width, depth cut; no kernel of the three."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    matmul = torch.backends.cuda.matmul
+    reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False    # as phases 16-18
+    cfg = configs.get(LM_SERVED)
+    ops.reset_launches()
+    single = mesh_serve_run(cfg, seed)                        # (b) first: its tokens teach (a)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_serve_mesh_") as tmp:
+        layout = mesh.make_host_mesh(1, 1, f"file://{tmp}/rendezvous", 0, LM_DEV)
+        try:
+            layout = layout.counting()
+            served = mesh_serve_run(cfg, seed, layout, teacher=single["tokens"])
+            cmp = mesh_vs_single("lm_serve_mesh (a)", cfg, served, single)
+            full = mesh_full_width(layout, seed)
+        finally:
+            dist.destroy_process_group()
+    if any(ops.launches.values()):
+        raise AssertionError(f"lm_serve_mesh: the layout's serving launched {ops.launches}")
+    agree = float((served["tokens"] == single["tokens"]).float().mean())
+    pick = ("prefill_ms", "prefill_tok_s", "decode_step_ms", "peak_gib")
+    out = dict(model=cfg.name, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW, card=card,
+               layout="1x1 nccl", comparison=cmp, greedy_token_agreement=agree,
+               mesh={k: served[k] for k in pick}, single={k: single[k] for k in pick},
+               decode_steps_in_median=len(served["step_ms"]) - 1,
+               census=served["census"], held=served["held"], full_width=full,
+               profile_decode={"mesh": served["profile_decode"],
+                               "single": single["profile_decode"]},
+               launches=dict(ops.launches),
+               phase16_prefill_ms=lm["served"]["prefill_ms"],
+               phase16_decode_step_ms=lm["served"]["decode_step_ms"])
+    log(f"[lm_serve_mesh] (a) {cfg.name} whole on a 1 x 1 NCCL layout ({card}), "
+        f"{LM_BATCH} x {LM_PROMPT} + {LM_NEW}: prefill {served['prefill_ms']:.2f} ms "
+        f"({served['prefill_tok_s']:.0f} tok/s; one device {single['prefill_ms']:.2f} ms), "
+        f"decode {served['decode_step_ms']:.3f} ms a step (median of "
+        f"{out['decode_steps_in_median']}; one device {single['decode_step_ms']:.3f} ms), peak "
+        f"{served['peak_gib']:.2f} GiB (one device {single['peak_gib']:.2f} GiB); teacher-forced "
+        f"logits vs one device {json.dumps(cmp)}; greedy tokens agree {agree:.4f}")
+    log(f"[lm_serve_mesh] census of one prefill and one decode step: "
+        f"{json.dumps(served['census'])}; held {json.dumps(served['held'])}")
+    for label, run in (("layout", served), ("one device", single)):
+        log(f"[lm_serve_mesh] profile of one decode step, {label}: "
+            + json.dumps(run["profile_decode"]))
+    log(f"[lm_serve_mesh] (c) full width, depth cut, layout vs one device: {json.dumps(full)}")
+    log("[lm_serve_mesh] " + json.dumps(out))
+    matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -3028,7 +3297,8 @@ def check_same_state(tag: str, a, b) -> None:
                              f"{b.dropped} differs")
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
-          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train", "lm_mesh")
+          "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train", "lm_mesh",
+          "lm_serve_mesh")
 
 
 def main() -> int:
@@ -3088,6 +3358,8 @@ def main() -> int:
             run[name] = phase_train(args.seed)
         elif name == "lm_mesh":
             run[name] = phase_lm_mesh(args.seed, run["train"], card)
+        elif name == "lm_serve_mesh":
+            run[name] = phase_lm_serve_mesh(args.seed, run["lm"], card)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -3112,9 +3384,10 @@ def main() -> int:
         k["dist_launches"] = run["dist"]["launches"][k["name"]]
         k["sweep2d_launches"] = run["sweep2d"]["launches"][k["name"]]
     kernels[1]["dist_emulated_launches"] = run["dist"]["emulated_launches"]["m2l_separable"]
-    for k in kernels:      # the LM training path, on one card or a layout, launches none
+    for k in kernels:      # the LM paths, on one card or a layout, launch none
         k["train_launches"] = run["train"]["launches"].get(k["name"], 0)
         k["lm_mesh_launches"] = run["lm_mesh"]["launches"].get(k["name"], 0)
+        k["lm_serve_mesh_launches"] = run["lm_serve_mesh"]["launches"].get(k["name"], 0)
     for k in kernels:
         log(f"[kernels] {k['name']}: {k['ms']:.4f} ms against a {k['bound_ms']:.4f} ms bound "
             f"({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

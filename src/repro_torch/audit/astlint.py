@@ -10,8 +10,8 @@ Two checks, each honouring a per-line `# audit: ok` pragma:
   schedule needs) says so with the pragma.
 * naked collectives: a `torch.distributed` collective anywhere in the
   package but `launch/mesh.py`.  Every other module gets its collectives
-  through a `Group` (gather, merge, scatter_sum, gather_objects,
-  gather_to_host), so rule R2 sees each one and the group it was made on.
+  through a `Group` (gather, merge, reduce, scatter_sum, all_to_all,
+  gather_objects, gather_to_host), so rule R2 sees each one and the group it was made on.
 """
 from __future__ import annotations
 

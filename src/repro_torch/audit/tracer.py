@@ -174,9 +174,17 @@ class TracingGroup:
         self._record("merge", x.numel())
         return self.inner.merge(x)
 
+    def reduce(self, x):
+        self._record("reduce", x.numel())
+        return self.inner.reduce(x)
+
     def scatter_sum(self, x):
         self._record("scatter_sum", x.numel())
         return self.inner.scatter_sum(x)
+
+    def all_to_all(self, x):
+        self._record("all_to_all", x.numel())
+        return self.inner.all_to_all(x)
 
     def gather_objects(self, obj):
         self._record("gather_objects", 0)

@@ -7,7 +7,9 @@ are the collectives the reference's helpers take as callables:
 
     gather(x)       lax.all_gather(x, tiled=True)   dist.all_gather_into_tensor
     merge(x)        lax.psum(x)                     dist.all_reduce(SUM)
+    reduce(x)       lax.psum(x) in float32          dist.all_reduce(SUM)
     scatter_sum(x)  lax.psum_scatter(x, dim 0)      dist.reduce_scatter_tensor
+    all_to_all(x)   lax.all_to_all(x, 0, 0)         dist.all_to_all_single
     gather_objects  (host objects, results only)    dist.all_gather_object
     gather_to_host  (checkpoints: to one rank)       dist.send / dist.recv
 
@@ -68,11 +70,26 @@ class Group:
         dist.all_reduce(out, group=self.pg)
         return out
 
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's x in float32 (a float32 tensor; the
+        tensor-parallel partial products).  Every rank gets the same bits."""
+        out = x.to(torch.float32, copy=True)
+        dist.all_reduce(out, group=self.pg)
+        return out
+
     def scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
         """x: (size, ...) -> (...): block `rank` of the sum over ranks."""
         out = x.new_empty(tuple(x.shape[1:]))
         dist.reduce_scatter_tensor(out, x.reshape((-1,) + tuple(x.shape[2:])).contiguous(),
                                    group=self.pg)
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (size, ...) -> (size, ...): entry i of the result is rank i's
+        x[rank] (entry j of x goes to rank j)."""
+        src = x.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.pg)
         return out
 
     def gather_objects(self, obj) -> list:
@@ -120,26 +137,29 @@ class ShapeGroup:
     def _none(self, x):
         raise RuntimeError("ShapeGroup performs no collectives")
 
-    gather = merge = scatter_sum = gather_objects = gather_to_host = _none
+    gather = merge = reduce = scatter_sum = all_to_all = gather_objects = _none
+    gather_to_host = _none
 
 
 class CountingGroup:
     """A group that counts, per collective, its calls and the elements and
     bytes of the whole vector it moves: a gather's output, a merge's input,
-    a scatter_sum's input, a gather_to_host's parts (as sent).  "largest"
-    is the most bytes one call moved (for gather_to_host, one message)."""
+    a reduce's float32 vector, a scatter_sum's and an all_to_all's input, a
+    gather_to_host's parts (as sent).  "largest" is the most bytes one call
+    moved (for gather_to_host, one message)."""
 
     NAMES = ("gather", "merge", "scatter_sum", "gather_objects", "gather_to_host")
+    LM_NAMES = NAMES + ("reduce", "all_to_all")     # the LM layout's groups count these too
 
-    def __init__(self, inner):
-        self.inner = inner
+    def __init__(self, inner, names: Sequence[str] = NAMES):
+        self.inner, self.names = inner, tuple(names)
         self.rank, self.size, self.name = inner.rank, inner.size, inner.name
         self.device = inner.device
         self.reset()
 
     def reset(self) -> None:
         self.counts: Dict[str, Dict[str, int]] = {
-            k: {"calls": 0, "elements": 0, "bytes": 0, "largest": 0} for k in self.NAMES}
+            k: {"calls": 0, "elements": 0, "bytes": 0, "largest": 0} for k in self.names}
 
     def _count(self, name: str, t: torch.Tensor) -> None:
         c = self.counts[name]
@@ -157,9 +177,18 @@ class CountingGroup:
         self._count("merge", x)
         return self.inner.merge(x)
 
+    def reduce(self, x):
+        out = self.inner.reduce(x)
+        self._count("reduce", out)
+        return out
+
     def scatter_sum(self, x):
         self._count("scatter_sum", x)
         return self.inner.scatter_sum(x)
+
+    def all_to_all(self, x):
+        self._count("all_to_all", x)
+        return self.inner.all_to_all(x)
 
     def gather_objects(self, obj):
         self.counts["gather_objects"]["calls"] += 1
@@ -276,7 +305,8 @@ class LMGroups:
         """The same layout with every group wrapped in a `CountingGroup`
         (one wrapper for a group that serves two axis tuples)."""
         wrapped = {}
-        groups = {k: wrapped.setdefault(id(g), CountingGroup(g)) for k, g in self.groups.items()}
+        groups = {k: wrapped.setdefault(id(g), CountingGroup(g, CountingGroup.LM_NAMES))
+                  for k, g in self.groups.items()}
         return LMGroups(self.axes, self.sizes, self.rank, groups)
 
     def counts(self) -> Dict[str, dict]:

@@ -18,24 +18,38 @@ master (`shard_state`, `runtime.failures.reshard`), gathers each unit's
 weights just before the unit runs (again in a remat unit's
 recomputation) and drops them after, reduce-scatters each unit's
 gradients in the gather's backward, reduces what the spec leaves whole
-over the other axes, and runs AdamW on its blocks.  Tensor parallelism
-over the model axis (the reference's other posture) is not ported: with
-model > 1 the step needs `dp_over_model=True`.  The prefill and decode
-steps take no layout yet.
+over the other axes, and runs AdamW on its blocks.  Tensor-parallel
+training over the model axis (the reference's other posture) is not
+ported: with model > 1 the step needs `dp_over_model=True`.
+
+`make_prefill_step(cfg, mesh=)` and `make_decode_step(cfg, mesh=)` serve
+over a layout, as the reference's do: each rank holds its blocks of the
+weights as `param_shardings(mesh, cfg, serve=True)` places them
+(`shard_params`: tensor parallel over the model axis and whole over the
+fsdp axes, or, where the weights whole over fsdp exceed the budget, the
+training specs, whose fsdp blocks each unit gathers while it runs), its
+blocks of the caches (`make_cache`: batch over fsdp, sequence, SSM heads
+or conv channels over model) and of the batch (`shard_batch`), and
+returns its block of the logits (`logits_shardings`: vocab over model;
+`gather_logits` puts them together).  The steps install the layout in
+`sharding.hints` while they run; the layers compute their blocks
+(`models.tp`).
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from repro_torch.models import model as M
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw
-from repro_torch.sharding import rules
+from repro_torch.sharding import hints, rules
 
 META = torch.device("meta")
 
@@ -152,8 +166,14 @@ def cache_shardings(mesh, cfg: ModelConfig, batch: int, max_seq: int):
 
 def logits_shardings(mesh, cfg: ModelConfig, batch: int) -> tuple:
     """(B, 1, V) decode logits: batch over fsdp, vocab over model."""
-    b_axes = rules.batch_spec(mesh, batch)[0]
-    return rules._spec(mesh, (batch, 1, cfg.vocab_size), (b_axes, None, rules.MODEL))
+    return logits_spec(mesh, (batch, 1, cfg.vocab_size))
+
+
+def logits_spec(mesh, shape) -> tuple:
+    """The spec of logits of whole `shape` (B, ..., V): batch over fsdp,
+    vocab over model (`hints.hint_logits`'s layout)."""
+    b_axes = rules.batch_spec(mesh, shape[0])[0]
+    return rules._spec(mesh, shape, (b_axes,) + (None,) * (len(shape) - 2) + (rules.MODEL,))
 
 
 def batch_shardings(mesh, specs: Dict[str, Spec], include_model: bool = False
@@ -226,26 +246,128 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, remat: bool = Tr
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """prefill_step(model, caches, batch) -> (logits (B, 1, V), caches).
+    mesh: an `LMGroups` layout; then `model` holds the rank's blocks
+    (`shard_params`), `caches` its blocks (`make_cache`), `batch` its rows
+    (`shard_batch`), and the logits are its block (`logits_shardings`)."""
+    serving = _Serving(cfg, mesh)
     if cfg.is_encoder:
         # Encoder-only archs have no decode, hence no cache: "prefill" is the
         # full bidirectional forward (the serving operation for hubert).
         @torch.inference_mode()
         def encode_step(params, batch):
-            return M.forward_train(params, batch["inputs"])
+            with serving(params) as unit:
+                return M.forward_train(params, batch["inputs"], unit=unit)
         return encode_step
 
     @torch.inference_mode()
     def prefill_step(params, caches, batch):
-        return M.forward_prefill(params, batch["inputs"], caches)
+        with serving(params):
+            return M.forward_prefill(params, batch["inputs"], caches)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """serve_step(model, caches, batch) -> (logits (B, 1, V), caches); mesh
+    as `make_prefill_step`."""
+    serving = _Serving(cfg, mesh)
+
     @torch.inference_mode()
     def serve_step(params, caches, batch):
-        return M.forward_decode(params, batch["token"], caches, batch["cache_pos"])
+        with serving(params):
+            return M.forward_decode(params, batch["token"], caches, batch["cache_pos"])
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Serving over a layout
+# ---------------------------------------------------------------------------
+
+def _slots(model: M.LMModel) -> Dict[str, Tuple[torch.nn.Module, str]]:
+    """Each parameter's name -> (its module, its attribute)."""
+    out = {}
+    for prefix, m in model.named_modules():
+        for attr in m._parameters:
+            out[f"{prefix}.{attr}" if prefix else attr] = (m, attr)
+    return out
+
+
+def shard_params(mesh, cfg: ModelConfig, model: M.LMModel, hbm_budget_bytes: float = 10e9
+                 ) -> M.LMModel:
+    """A model of `cfg` holding this rank's blocks of `model`'s weights as
+    `param_shardings(mesh, cfg, serve=True, hbm_budget_bytes)` places them,
+    on the layout's device: a block smaller than its leaf is a tensor of its
+    own (the whole leaf can be dropped), a whole one is the leaf itself (no
+    copy: a one-rank layout holds the model it was given)."""
+    specs = param_shardings(mesh, cfg, serve=True, hbm_budget_bytes=hbm_budget_bytes)
+    out = M.LMModel(cfg, None, META)
+    slots = _slots(out)
+    for name, p in model.named_parameters():
+        blk = rules.shard_leaf(specs[name], p.detach(), mesh.coords)
+        if blk.numel() < p.numel():
+            blk = blk.clone()
+        mod, attr = slots[name]
+        mod._parameters[attr] = torch.nn.Parameter(blk.to(mesh.device), requires_grad=False)
+    return out
+
+
+def make_cache(mesh, cfg: ModelConfig, batch: int, max_seq: int) -> M.Caches:
+    """This rank's blocks of the decode caches of `batch` rows and `max_seq`
+    positions, as `cache_shardings` places them, allocated directly (zeros on
+    the layout's device; no whole cache is made)."""
+    abstract = abstract_caches(cfg, batch, max_seq)
+    specs = cache_shardings(mesh, cfg, batch, max_seq)
+    return {grp: [tp.CacheBlock(
+        {k: torch.zeros(rules.block_shape(specs[grp][i][k], v.shape, mesh), dtype=v.dtype,
+                        device=mesh.device) for k, v in layer.items()},
+        {k: tuple(v.shape) for k, v in layer.items()}) for i, layer in enumerate(layers)]
+        for grp, layers in abstract.items()}
+
+
+def gather_logits(mesh, cfg: ModelConfig, logits: torch.Tensor, batch: int) -> torch.Tensor:
+    """The whole logits of a global batch of `batch` rows on every rank, from
+    every rank's block (collective)."""
+    shape = (batch,) + tuple(logits.shape[1:-1]) + (cfg.vocab_size,)
+    return rules.unshard_leaf(logits_spec(mesh, shape), logits, mesh.group)
+
+
+class _Serving:
+    """What a serving step installs while it runs: the layout in
+    `sharding.hints` and, for a model held in the training specs' blocks,
+    the unit that gathers each unit's fsdp-cut weights (under inference
+    mode: no backward).  Each block's posture is read from its shape."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.units = weakref.WeakKeyDictionary()
+
+    def _unit(self, model: M.LMModel):
+        mesh, whole = self.mesh, abstract_params(self.cfg)
+        serve = rules.tree_specs(mesh, whole, rules.param_spec_serve)
+        train = rules.tree_specs(mesh, whole, rules.param_spec)
+        cut = {}
+        for name, p in model.named_parameters():
+            w = whole[name]
+            if tuple(p.shape) == rules.block_shape(serve[name], w.shape, mesh):
+                continue
+            if tuple(p.shape) != rules.block_shape(train[name], w.shape, mesh):
+                raise ValueError(f"{name}: {tuple(p.shape)} is a block of neither posture of "
+                                 f"param_shardings(serve=True) on {mesh.shape}")
+            cut[name] = _leaf_plan(mesh, name, w)
+        if not cut:
+            return None
+        return _gathering_unit(mesh, cut, model, dict(model.named_parameters()), _slots(model))
+
+    @contextlib.contextmanager
+    def __call__(self, model: M.LMModel):
+        unit = None
+        if self.mesh is not None:
+            if model not in self.units:
+                self.units[model] = self._unit(model)
+            unit = self.units[model]
+        with hints.layout(self.mesh, unit=unit):
+            yield unit or M._no_unit
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +430,33 @@ class _GatherUnit(torch.autograd.Function):
         return (None, None, *out)
 
 
+def _gathering_unit(mesh, plan: Dict[str, _Leaf], model: M.LMModel,
+                    blocks: Dict[str, torch.Tensor], slots):
+    """The `unit` context of `models.model` for `blocks`: entering a unit
+    gathers the whole weights of its modules' leaves that `plan` cuts, in
+    one collective per group of axes (`_GatherUnit`), and puts them in the
+    model while the unit runs."""
+    names = {id(m): [n for n, _ in m.named_parameters(prefix=prefix)]
+             for prefix, m in model.named_modules()}
+
+    @contextlib.contextmanager
+    def unit(*modules):
+        groups: Dict[Tuple[str, ...], List[str]] = {}
+        for m in modules:
+            for n in names[id(m)]:
+                if n in plan and plan[n].dim is not None:
+                    groups.setdefault(plan[n].axes, []).append(n)
+        whole = {}
+        for axes, ns in groups.items():
+            ns = sorted(ns, key=lambda n: -blocks[n].element_size())
+            outs = _GatherUnit.apply(mesh.group(axes), tuple(plan[n].dim for n in ns),
+                                     *(blocks[n] for n in ns))
+            whole.update(zip(ns, outs))
+        with _bound(slots, whole):
+            yield
+    return unit
+
+
 @contextlib.contextmanager
 def _bound(slots: Dict[str, Tuple[torch.nn.Module, str]], tensors: Dict[str, torch.Tensor]):
     """The model's parameters named in `tensors` replaced by them while the
@@ -347,36 +496,15 @@ class _FSDPStep:
                  dp_over_model: bool):
         if mesh.shape.get(rules.MODEL, 1) > 1 and not dp_over_model:
             raise NotImplementedError(
-                "tensor parallelism over the model axis is not ported (ROADMAP Queue 1, item "
-                "13 (c)): pass dp_over_model=True, or a layout with model == 1")
+                "tensor parallelism over the model axis is not ported for training yet: it "
+                "is the next slice of ROADMAP.md's Queue 1 (item 13 (c), training over the "
+                "model axis; serving over it is make_prefill_step / make_decode_step(mesh=)): "
+                "pass dp_over_model=True, or a layout with model == 1")
         self.cfg, self.opt_cfg, self.remat, self.mesh = cfg, opt_cfg, remat, mesh
         self.plan = {k: _leaf_plan(mesh, k, p) for k, p in abstract_params(cfg).items()}
         self.order = adamw.leaf_order(self.plan)
         self.counted = {k: not any(mesh.coords[a][0] for a in lf.rest)
                         for k, lf in self.plan.items()}
-
-    def _unit(self, model: M.LMModel, blocks: Dict[str, torch.Tensor], slots):
-        """The `unit` context of `models.model` for this step's blocks."""
-        names = {id(m): [n for n, _ in m.named_parameters(prefix=prefix)]
-                 for prefix, m in model.named_modules()}
-
-        @contextlib.contextmanager
-        def unit(*modules):
-            groups: Dict[Tuple[str, ...], List[str]] = {}
-            for m in modules:
-                for n in names[id(m)]:
-                    if self.plan[n].dim is not None:
-                        groups.setdefault(self.plan[n].axes, []).append(n)
-            whole = {}
-            for axes, ns in groups.items():
-                ns = sorted(ns, key=lambda n: -blocks[n].element_size())
-                outs = _GatherUnit.apply(self.mesh.group(axes),
-                                         tuple(self.plan[n].dim for n in ns),
-                                         *(blocks[n] for n in ns))
-                whole.update(zip(ns, outs))
-            with _bound(slots, whole):
-                yield
-        return unit
 
     def _sum_rest(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Every leaf's gradient summed over the layout's axes that do not
@@ -400,14 +528,13 @@ class _FSDPStep:
             blocks = state.params
             for p in blocks.values():
                 p.requires_grad_(True)
-            slots = {}
-            for prefix, m in model.named_modules():
-                for attr in m._parameters:
-                    slots[f"{prefix}.{attr}" if prefix else attr] = (m, attr)
-            unit = self._unit(model, blocks, slots)
+            slots = _slots(model)
+            unit = _gathering_unit(mesh, self.plan, model, blocks, slots)
             whole = {k: blocks[k] for k, lf in self.plan.items() if lf.dim is None}
             names = list(blocks)
-            with _bound(slots, whole):
+            # The step plans by the DP specs: the anchors are the identity and
+            # the layers run their single-device code on the gathered weights.
+            with hints.layout(mesh, dp_over_model=True), _bound(slots, whole):
                 with record_function("lm.loss"):
                     local = M.loss_fn(model, batch["inputs"], batch["labels"],
                                       remat=self.remat, unit=unit)

@@ -28,6 +28,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 
 Cache = Dict[str, torch.Tensor]
@@ -177,6 +178,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal, q_offset, q_chunk, kv_chunk)
 
 
+def softmax(sc: torch.Tensor) -> torch.Tensor:
+    """softmax over the last dim as exp(s - max) / sum (the reference's
+    `jax.nn.softmax` form): over one rank, `tp.seq_softmax` computes the
+    same operations, so a one-rank layout's decode has one device's bits."""
+    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_pos: int) -> torch.Tensor:
     """q: (B, 1, H, D), caches: (B, S, KV, D); attend over positions
@@ -187,7 +196,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     sc = torch.einsum('bkgd,bskd->bkgs', qr.float(), k_cache.float()) * d ** -0.5
     pos = torch.arange(s, device=q.device)
     sc = torch.where(pos <= cache_pos, sc, MASKED)
-    w = torch.softmax(sc, dim=-1)
+    w = softmax(sc)
     o = torch.einsum('bkgs,bskd->bkgd', w.to(v_cache.dtype).float(), v_cache.float())
     return o.reshape(b, 1, h, d).to(q.dtype)
 
@@ -257,6 +266,9 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache] 
               cache_pos: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Train (cache=None), prefill (cache given, x full-seq, cache_pos=None),
     decode (cache given, x is (B,1,d), cache_pos the position)."""
+    g = tp.group()
+    if g is not None:
+        return _gqa_tp(p, x, cfg, cache, cache_pos, g)
     b, t, _ = x.shape
     decode = cache is not None and cache_pos is not None
     q, k, v = _project_qkv(p, x, cfg, _positions(b, t, cache_pos if decode else None,
@@ -269,6 +281,95 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache] 
     else:
         o = flash_attention(q, k, v, cfg.causal)
     return o.reshape(b, t, -1) @ p.wo.to(x.dtype), cache
+
+
+def seq_decode_attention(g, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         cache_pos: int, start: int) -> torch.Tensor:
+    """`decode_attention` over a cache whose sequence is cut over the model
+    axis (this rank: positions [start, start + S_l)), with every head's q:
+    the two-level softmax, the weights cast to the cache's dtype as one
+    device casts them, each rank's float32 partial w.v summed over the
+    axis."""
+    b, _, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    qr = q.reshape(b, kv, h // kv, d)
+    sc = torch.einsum('bkgd,bskd->bkgs', qr.float(), k_cache.float()) * d ** -0.5
+    sc = torch.where(tp.positions_of(start, s, q.device) <= cache_pos, sc, MASKED)
+    w = tp.seq_softmax(g, sc)
+    o = torch.einsum('bkgs,bskd->bkgd', w.to(v_cache.dtype).float(), v_cache.float())
+    return tp.reduce(g, o).reshape(b, 1, h, d).to(q.dtype)
+
+
+def _write_kv(g, cache: Cache, k: torch.Tensor, v: torch.Tensor, kv_split: bool,
+              cache_pos: Optional[int]) -> None:
+    """Put k and v (B, T, KV_l, hd: this rank's KV heads when kv_split, else
+    all) into the rank's cache block (all KV heads, its positions).  Prefill
+    with the sequence cut moves them from heads over model to sequence over
+    model with one all-to-all (padded to the whole sequence, so every
+    block's exchange is the same size); decode's new token, or a cache
+    whole over the sequence, gathers the heads."""
+    start, length, seq_cut = tp.seq_block(g, cache, "k")
+    kv = torch.stack([k, v])                                   # (2, B, T, KV_l, hd)
+    p0 = 0 if cache_pos is None else cache_pos
+    if kv_split and seq_cut and cache_pos is None:
+        t = kv.shape[2]
+        pad = kv.new_zeros(kv.shape[:2] + (length * g.size - t,) + kv.shape[3:])
+        parts = torch.cat([kv, pad], dim=2).unflatten(2, (g.size, length)).movedim(2, 0)
+        got = tp.all_to_all(g, parts)                          # (ranks, 2, B, S_l, KV_l, hd)
+        kv = got.permute(1, 2, 3, 0, 4, 5).flatten(3, 4)[:, :, :max(0, min(length, t - start))]
+        p0 = start
+    elif kv_split:
+        kv = tp.gather(g, kv, 3)
+    tp.write_seq(cache, "k", kv[0], p0, start)
+    tp.write_seq(cache, "v", kv[1], p0, start)
+
+
+def _gqa_tp(p: GQA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache],
+            cache_pos: Optional[int], g) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """`gqa_apply` on a layout: the rank's query heads (all where the model
+    axis does not divide them), its KV heads where the axis divides both
+    counts (else every KV head, replicated as Megatron does), wo's rows
+    summed over the axis in float32.  Prefill attends over the whole prompt
+    with the rank's heads; decode over the sequence-cut cache with every
+    head's q (one gather), and keeps its heads' output."""
+    b, t, _ = x.shape
+    hd, heads, kv_heads = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    decode = cache is not None and cache_pos is not None
+    h0, h1, split = tp.split(heads, g)
+    kv_split = split and kv_heads % g.size == 0
+    k0, k1 = (h0 * kv_heads // heads, h1 * kv_heads // heads) if kv_split else (0, kv_heads)
+    q_cols, kv_cols = [(h0 * hd, h1 * hd)], [(k0 * hd, k1 * hd)]
+    q = x @ tp.take(g, p.wq, 1, q_cols, heads * hd).to(x.dtype)
+    k = x @ tp.take(g, p.wk, 1, kv_cols, kv_heads * hd).to(x.dtype)
+    v = x @ tp.take(g, p.wv, 1, kv_cols, kv_heads * hd).to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + tp.take(g, p.bq, 0, q_cols, heads * hd).to(x.dtype)
+        k = k + tp.take(g, p.bk, 0, kv_cols, kv_heads * hd).to(x.dtype)
+        v = v + tp.take(g, p.bv, 0, kv_cols, kv_heads * hd).to(x.dtype)
+    q = q.reshape(b, t, h1 - h0, hd)
+    k = k.reshape(b, t, k1 - k0, hd)
+    v = v.reshape(b, t, k1 - k0, hd)
+    if cfg.qk_norm:
+        q = p.q_norm(q, cfg.norm_eps)
+        k = p.k_norm(k, cfg.norm_eps)
+    positions = _positions(b, t, cache_pos if decode else None, x.device)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        _write_kv(g, cache, k, v, kv_split, cache_pos)
+    if decode:
+        start, _, seq_cut = tp.seq_block(g, cache, "k")
+        if seq_cut:
+            q_all = tp.gather(g, q, 2) if split else q
+            o = seq_decode_attention(g, q_all, cache["k"], cache["v"], cache_pos, start)
+            o = o[:, :, h0:h1]
+        else:
+            o = decode_attention(q, tp.grouped_kv(cache["k"], h0, h1, heads, kv_heads),
+                                 tp.grouped_kv(cache["v"], h0, h1, heads, kv_heads), cache_pos)
+    else:
+        o = flash_attention(q, tp.grouped_kv(k, h0, h1, heads, kv_heads, k0),
+                            tp.grouped_kv(v, h0, h1, heads, kv_heads, k0), cfg.causal)
+    return tp.row(g, o.reshape(b, t, -1), p.wo, q_cols, heads * hd, split), cache
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +402,9 @@ def mla_make_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> Cache:
 
 def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache] = None,
               cache_pos: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
+    g = tp.group()
+    if g is not None:
+        return _mla_tp(p, x, cfg, cache, cache_pos, g)
     b, t, _ = x.shape
     h, rd = cfg.num_heads, cfg.rope_head_dim
     decode = cache is not None and cache_pos is not None
@@ -325,7 +429,7 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache] 
               + torch.einsum('bohd,bsd->bhs', q_rope.float(), ck)) * scale
         pos = torch.arange(cc.shape[1], device=x.device)
         sc = torch.where(pos <= cache_pos, sc, MASKED)
-        w = torch.softmax(sc, dim=-1)
+        w = softmax(sc)
         o_c = torch.einsum('bhs,bsr->bhr', w, cc)
         o = torch.einsum('bhr,rhv->bhv', o_c, p.w_uv.float())
         o = o.reshape(b, 1, h * MLA_V_DIM).to(x.dtype)
@@ -336,6 +440,71 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache] 
         k = torch.cat([k_nope, kr.expand(b, t, h, rd).to(k_nope.dtype)], dim=-1)
         o = flash_attention(qf, k, v, cfg.causal).reshape(b, t, h * MLA_V_DIM)
     return o @ p.wo.to(x.dtype), cache
+
+
+def _mla_tp(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache],
+            cache_pos: Optional[int], g) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """`mla_apply` on a layout.  wq, w_uk, w_uv and wo's rows: the rank's
+    heads.  w_dkv's columns are cut over the model axis, so x @ w_dkv comes
+    out cut along r: one gather makes c whole on every rank (c_norm
+    normalises over all of r, and every head's up-projection reads all of
+    it); w_kr (its cut falls across RoPE's halves) is gathered whole.  The
+    cache's sequence blocks are then cut from c and kr with no collective.
+    The absorbed decode gathers every head's [q~ | q_rope] (one gather),
+    scores the rank's positions, takes the two-level softmax and sums the
+    float32 partial w.c over the axis, then keeps its heads."""
+    b, t, _ = x.shape
+    heads, rd, r = cfg.num_heads, cfg.rope_head_dim, cfg.kv_lora_rank
+    nq = MLA_QK_NOPE + rd
+    decode = cache is not None and cache_pos is not None
+    positions = _positions(b, t, cache_pos if decode else None, x.device)
+    h0, h1, split = tp.split(heads, g)
+    hl = h1 - h0
+
+    q = (x @ tp.take(g, p.wq, 1, [(h0 * nq, h1 * nq)], heads * nq).to(x.dtype))
+    q = q.reshape(b, t, hl, nq)
+    q_nope = q[..., :MLA_QK_NOPE]
+    q_rope = L.apply_rope(q[..., MLA_QK_NOPE:], positions, cfg.rope_theta)
+    c = p.c_norm(tp.whole(g, x @ p.w_dkv.to(x.dtype), 2, r), cfg.norm_eps)     # (B,T,r)
+    kr = L.apply_rope((x @ tp.take(g, p.w_kr, 1, [(0, rd)], rd).to(x.dtype))[:, :, None, :],
+                      positions, cfg.rope_theta)                               # (B,T,1,rd)
+    w_uk = tp.take(g, p.w_uk, 1, [(h0, h1)], heads)
+    w_uv = tp.take(g, p.w_uv, 1, [(h0, h1)], heads)
+    if cache is not None:
+        start = tp.seq_block(g, cache, "c")[0]
+        p0 = 0 if cache_pos is None else cache_pos
+        tp.write_seq(cache, "c", c, p0, start)
+        tp.write_seq(cache, "kr", kr[:, :, 0, :], p0, start)
+
+    if decode:
+        scale = nq ** -0.5
+        cc, ck = cache["c"].float(), cache["kr"].float()
+        start, length, seq_cut = tp.seq_block(g, cache, "c")
+        q_c = torch.einsum('bohn,rhn->bohr', q_nope.float(), w_uk.float())      # (B,1,hl,r)
+        qa = torch.cat([q_c, q_rope.float()], dim=-1)
+        every = seq_cut and split
+        if every:
+            qa = tp.gather(g, qa, 2)                                            # every head
+        q_c, q_r = qa[..., :r].contiguous(), qa[..., r:].contiguous()
+        sc = (torch.einsum('bohr,bsr->bhs', q_c, cc)
+              + torch.einsum('bohd,bsd->bhs', q_r, ck)) * scale
+        sc = torch.where(tp.positions_of(start, length, x.device) <= cache_pos, sc, MASKED)
+        if seq_cut:
+            o_c = tp.reduce(g, torch.einsum('bhs,bsr->bhr', tp.seq_softmax(g, sc), cc))
+        else:
+            o_c = torch.einsum('bhs,bsr->bhr', softmax(sc), cc)
+        if every:
+            o_c = o_c[:, h0:h1]
+        o = torch.einsum('bhr,rhv->bhv', o_c, w_uv.float())
+        o = o.reshape(b, 1, hl * MLA_V_DIM).to(x.dtype)
+    else:
+        k_nope = torch.einsum('btr,rhn->bthn', c, w_uk.to(c.dtype))
+        v = torch.einsum('btr,rhv->bthv', c, w_uv.to(c.dtype))
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, kr.expand(b, t, hl, rd).to(k_nope.dtype)], dim=-1)
+        o = flash_attention(qf, k, v, cfg.causal).reshape(b, t, hl * MLA_V_DIM)
+    return tp.row(g, o, p.wo, [(h0 * MLA_V_DIM, h1 * MLA_V_DIM)], heads * MLA_V_DIM,
+                  split), cache
 
 
 # ---------------------------------------------------------------------------

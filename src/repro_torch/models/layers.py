@@ -114,6 +114,22 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens].to(ACT_DTYPE)
 
 
+def embed_split(g, table: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """`embed` on a layout whose model axis cuts the table's vocab rows: each
+    rank looks up the tokens its rows hold, writes zeros for the others, and
+    the sum over the axis has one term other than zero per element, so it is
+    exact (`models.tp`).  Where the axis does not divide the vocab the table
+    is whole and this is `embed`."""
+    from repro_torch.models import tp
+    v0, v1, split = tp.split(vocab, g)
+    rows = tp.take(g, table, 0, [(v0, v1)], vocab)
+    if not split:
+        return embed(rows, tokens)
+    inside = (tokens >= v0) & (tokens < v1)
+    local = embed(rows, (tokens - v0).clamp(0, v1 - v0 - 1))
+    return tp.reduce(g, torch.where(inside[..., None], local, 0)).to(ACT_DTYPE)
+
+
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     # f32 logits for a stable softmax/cross-entropy.
     return x.float() @ table.float().T

@@ -24,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import hints
 
 Cache = Dict[str, torch.Tensor]
 
@@ -136,6 +138,9 @@ def mamba2_apply(params: Mamba2, x: torch.Tensor, cfg: ModelConfig,
                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, T, d).  Decode when cache is given and T == 1; the cache's
     entries are replaced in place and the cache returned."""
+    g = tp.group()
+    if g is not None:
+        return _mamba2_tp(params, x, cfg, cache, g)
     bsz, t, _ = x.shape
     d_inner, nheads, p, n = _dims(cfg)
     zxbcdt = x @ params.in_proj.to(x.dtype)
@@ -171,3 +176,71 @@ def mamba2_apply(params: Mamba2, x: torch.Tensor, cfg: ModelConfig,
     # gated RMSNorm (mamba2: norm(y * silu(z)))
     y = params.norm(y * L.silu(z), cfg.norm_eps)
     return y @ params.out_proj.to(x.dtype), cache
+
+
+def _mamba2_tp(params: Mamba2, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache], g
+               ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """`mamba2_apply` on a layout.  The rank takes its heads (all where the
+    model axis does not divide them): z and dt for its heads, and the whole
+    xBC (B and C are shared by every head, and the conv cache's channel
+    block crosses the x | B | C boundaries), from in_proj, which the specs
+    cut across z | xBC | dt and so is gathered whole; conv_w and conv_b
+    likewise.  The conv runs on every channel: prefill leaves the rank's
+    channel block of the last taps, decode gathers the conv cache's
+    channels first.  The SSM runs the rank's heads against its head block
+    of the ssm cache; the gated RMSNorm sums its squares over the axis
+    (the norm is over the whole d_inner), and out_proj's rows are summed
+    over the axis in float32."""
+    bsz, t, _ = x.shape
+    d_inner, nheads, p, n = _dims(cfg)
+    conv_dim = d_inner + 2 * n
+    h0, h1, split = tp.split(nheads, g)
+    hl, dl = h1 - h0, (h1 - h0) * p
+    dt0 = 2 * d_inner + 2 * n
+    cols = [(h0 * p, h1 * p), (d_inner, dt0), (dt0 + h0, dt0 + h1)]
+    zxbcdt = x @ tp.take(g, params.in_proj, 1, cols, dt0 + nheads).to(x.dtype)
+    z, xbc, dt_raw = torch.split(zxbcdt, [dl, conv_dim, hl], dim=-1)
+    heads = [(h0, h1)]
+    dt = F.softplus(dt_raw.float() + tp.take(g, params.dt_bias, 0, heads, nheads))
+    a_log = tp.take(g, params.a_log, 0, heads, nheads)
+    d_skip = tp.take(g, params.d_skip, 0, heads, nheads)
+    conv_w = tp.take(g, params.conv_w, 1, [(0, conv_dim)], conv_dim)
+    conv_b = tp.take(g, params.conv_b, 0, [(0, conv_dim)], conv_dim)
+    own = slice(h0 * p, h1 * p)
+
+    if cache is not None and t == 1:
+        state = tp.whole(g, cache["conv"], 2, conv_dim)
+        new_conv = torch.cat([state, xbc], dim=1)[:, 1:, :]
+        xbc_c = _causal_conv(xbc, conv_w, conv_b, state=state)
+        xs, bmat, cmat = torch.split(xbc_c, [d_inner, n, n], dim=-1)
+        xh = xs[..., own].reshape(bsz, hl, p)
+        dec = torch.exp(dt[:, 0, :] * -torch.exp(a_log))
+        h = cache["ssm"] * dec[:, :, None, None] + torch.einsum(
+            'bn,bh,bhp->bhnp', bmat[:, 0].float(), dt[:, 0], xh.float())
+        y = torch.einsum('bn,bhnp->bhp', cmat[:, 0].float(), h)
+        y = y + d_skip[:, None] * xh.float()
+        y = y.reshape(bsz, 1, dl).to(x.dtype)
+        cache["conv"] = hints.model_block(new_conv, 2, conv_dim).to(cache["conv"].dtype)
+        cache["ssm"] = h
+    else:
+        xbc_c = _causal_conv(xbc, conv_w, conv_b)
+        xs, bmat, cmat = torch.split(xbc_c, [d_inner, n, n], dim=-1)
+        y, final = _ssd_chunked(xs[..., own].reshape(bsz, t, hl, p), dt, a_log, bmat, cmat,
+                                d_skip, cfg.ssm_chunk)
+        y = y.reshape(bsz, t, dl)
+        if cache is not None:
+            taps = cfg.ssm_conv - 1
+            conv = torch.cat([xbc.new_zeros((bsz, taps, conv_dim)), xbc], dim=1)
+            conv = hints.model_block(conv[:, conv.shape[1] - taps:, :], 2, conv_dim)
+            cache["conv"] = conv.to(cache["conv"].dtype)
+            cache["ssm"] = final
+
+    # gated RMSNorm over the whole d_inner: the squares summed over the axis
+    yz = y * L.silu(z)
+    yf = yz.float()
+    sq = torch.sum(yf * yf, dim=-1, keepdim=True)
+    if split:
+        sq = tp.reduce(g, sq)
+    scale = tp.take(g, params.norm.scale, 0, [(h0 * p, h1 * p)], d_inner)
+    yn = (yf * torch.rsqrt(sq / d_inner + cfg.norm_eps) * scale.float()).to(yz.dtype)
+    return tp.row(g, yn, params.out_proj, [(h0 * p, h1 * p)], d_inner, split), cache

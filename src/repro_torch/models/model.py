@@ -20,8 +20,14 @@ hybrid (zamba2)     : [mamba2] x L with ONE shared attention+MLP block applied
 audio (hubert)      : encoder (bidirectional), input = precomputed frame
                       embeddings (frontend stub), no decode path
 
-The reference's sharding anchors (`repro.sharding.hints`) do nothing without
-a mesh; the single-device port calls nothing in their place.
+Layouts: the reference's activation anchors (`sharding.hints`) are called
+at its sites; with no layout installed they are the identity and every
+layer runs its single-device code.  Under a layout the serving steps
+(`launch.steps.make_prefill_step(mesh=)`, `make_decode_step(mesh=)`)
+install, each module holds the rank's blocks of its weights and each layer
+computes its blocks over the model axis (`models.tp`): the embedding and
+the logits by vocab rows, attention by heads (the caches by sequence
+blocks), the MLP by hidden units, MoE by experts, Mamba2 by SSM heads.
 
 Units: the training forward enters `unit(*modules)`, a context-manager
 factory, around each unit's use of its weights: the embedding (or the
@@ -53,7 +59,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as E
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import hints
 
 Caches = Dict[str, List[Dict[str, torch.Tensor]]]
 STACKS = ("layers", "dense_prefix", "dense_inter")   # the reference's stacked subtrees
@@ -100,13 +108,15 @@ class MambaLayer(nn.Module):
 
 
 def _dense_layer_apply(p: DenseLayer, x, cfg, cache=None, cache_pos=None):
+    x = hints.hint_batch(x)
     h, cache = A.attention_apply(p.attn, p.ln1(x, cfg.norm_eps), cfg, cache, cache_pos)
     x = x + h
-    x = x + E.swiglu(p.mlp, p.ln2(x, cfg.norm_eps))
+    x = x + E.mlp_apply(p.mlp, p.ln2(x, cfg.norm_eps), cfg.d_ff)
     return x, cache
 
 
 def _moe_layer_apply(p: MoELayer, x, cfg, cache=None, cache_pos=None):
+    x = hints.hint_batch(x)
     h, cache = A.attention_apply(p.attn, p.ln1(x, cfg.norm_eps), cfg, cache, cache_pos)
     x = x + h
     x = x + E.moe_apply(p.moe, p.ln2(x, cfg.norm_eps), cfg)
@@ -114,6 +124,7 @@ def _moe_layer_apply(p: MoELayer, x, cfg, cache=None, cache_pos=None):
 
 
 def _mamba_layer_apply(p: MambaLayer, x, cfg, cache=None, cache_pos=None):
+    x = hints.hint_batch(x)
     h, cache = M.mamba2_apply(p.mixer, p.ln(x, cfg.norm_eps), cfg, cache, cache_pos)
     return x + h, cache
 
@@ -212,13 +223,12 @@ def _unit(body, x, remat: bool):
 
 def _run(apply_fn, layers, x, cfg, caches, cache_pos, remat=False, unit: Unit = _no_unit):
     for i, lp in enumerate(layers):
-        if caches is not None:
-            x, _ = apply_fn(lp, x, cfg, caches[i], cache_pos)
-        else:
-            def body(h, lp=lp):
-                with unit(lp):
-                    return apply_fn(lp, h, cfg)[0]
-            x = _unit(body, x, remat)
+        cache = caches[i] if caches is not None else None
+
+        def body(h, lp=lp, cache=cache):
+            with unit(lp):
+                return apply_fn(lp, h, cfg, cache, cache_pos)[0]
+        x = _unit(body, x, remat and caches is None)
     return x
 
 
@@ -281,20 +291,40 @@ def backbone(model: LMModel, x: torch.Tensor, caches: Optional[Caches] = None,
 
 
 def _logits(model: LMModel, x: torch.Tensor, unit: Unit = _no_unit) -> torch.Tensor:
+    """f32 logits; on a layout the rank's vocab block (the tied table's rows
+    or the head's columns: no collective)."""
+    cfg, g = model.cfg, tp.group()
+    x = hints.hint_batch(x)
+    vocab = lambda leaf, dim: leaf if g is None else tp.take(
+        g, leaf, dim, [tp.split(cfg.vocab_size, g)[:2]], cfg.vocab_size)
     with record_function("lm.logits"):
-        if model.cfg.tie_embeddings:
+        if cfg.tie_embeddings:
             with unit(model.embed):
-                return L.unembed(model.embed.table, x)
-        with unit(model.head):
-            return x.float() @ model.head.w.float()
+                out = L.unembed(vocab(model.embed.table, 0), x)
+        else:
+            with unit(model.head):
+                out = x.float() @ vocab(model.head.w, 1).float()
+        return hints.hint_logits(out, cfg.vocab_size)
 
 
 def embed_inputs(model: LMModel, inputs: torch.Tensor, unit: Unit = _no_unit) -> torch.Tensor:
-    if model.cfg.family == "audio":
+    """On a layout: the table's vocab rows summed over the model axis
+    (`layers.embed_split`), or the frontend whole (its columns, cut over the
+    model axis, are gathered: the activation is whole over it)."""
+    cfg, g = model.cfg, tp.group()
+    if cfg.family == "audio":
         with unit(model.frontend):
-            return model.frontend(inputs.to(L.ACT_DTYPE))
-    with unit(model.embed):
-        return L.embed(model.embed.table, inputs)
+            feats = inputs.to(L.ACT_DTYPE)
+            if g is None:
+                x = model.frontend(feats)
+            else:
+                x = L.linear(feats, tp.take(g, model.frontend.w, 1, [(0, cfg.d_model)],
+                                            cfg.d_model))
+    else:
+        with unit(model.embed):
+            x = L.embed(model.embed.table, inputs) if g is None else \
+                L.embed_split(g, model.embed.table, inputs, cfg.vocab_size)
+    return hints.hint_batch(x)
 
 
 # ---------------------------------------------------------------------------
@@ -356,10 +386,13 @@ def loss_fn(model: LMModel, inputs: torch.Tensor, labels: torch.Tensor,
 @torch.inference_mode()
 def forward_prefill(model: LMModel, inputs: torch.Tensor, caches: Caches
                     ) -> Tuple[torch.Tensor, Caches]:
-    """Fill the caches with the prompt; return last-position logits (B, 1, V)."""
+    """Fill the caches with the prompt; return last-position logits (B, 1, V).
+    Under a layout (`sharding.hints`): the rank's blocks of the caches and
+    of the logits, and the installed unit gathers fsdp-cut weights."""
+    unit = hints.get_unit() or _no_unit
     with record_function("lm.prefill"):
-        x = backbone(model, embed_inputs(model, inputs), caches)
-        return _logits(model, x[:, -1:, :]), caches
+        x = backbone(model, embed_inputs(model, inputs, unit), caches, unit=unit)
+        return _logits(model, x[:, -1:, :], unit), caches
 
 
 @torch.inference_mode()
@@ -367,6 +400,7 @@ def forward_decode(model: LMModel, token: torch.Tensor, caches: Caches, cache_po
                    ) -> Tuple[torch.Tensor, Caches]:
     """One decode step.  token: (B, 1) integer (or (B, 1, F) features);
     cache_pos: the position it is written at."""
+    unit = hints.get_unit() or _no_unit
     with record_function("lm.decode"):
-        x = backbone(model, embed_inputs(model, token), caches, int(cache_pos))
-        return _logits(model, x), caches
+        x = backbone(model, embed_inputs(model, token, unit), caches, int(cache_pos), unit=unit)
+        return _logits(model, x, unit), caches

@@ -24,7 +24,9 @@ from torch import nn
 from torch.profiler import record_function
 
 from repro_torch.models import layers as L
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import hints
 
 
 class SwiGLU(nn.Module):
@@ -38,6 +40,20 @@ class SwiGLU(nn.Module):
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     h = L.silu(x @ p.wg.to(x.dtype)) * (x @ p.wi.to(x.dtype))
     return h @ p.wo.to(x.dtype)
+
+
+def mlp_apply(p: SwiGLU, x: torch.Tensor, width: int) -> torch.Tensor:
+    """A dense layer's SwiGLU of `width` hidden units.  On a layout: wi and
+    wg column-cut, wo row-cut over the model axis (the rank's hidden
+    units), one float32 sum over the axis."""
+    g = tp.group()
+    if g is None:
+        return swiglu(p, x)
+    f0, f1, split = tp.split(width, g)
+    cols = [(f0, f1)]
+    h = L.silu(x @ tp.take(g, p.wg, 1, cols, width).to(x.dtype)) \
+        * (x @ tp.take(g, p.wi, 1, cols, width).to(x.dtype))
+    return tp.row(g, h, p.wo, cols, width, split)
 
 
 class MoE(nn.Module):
@@ -109,15 +125,24 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         x_k = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
         hidden = torch.index_put(x.new_zeros((b, e * cap + 1, d)), (rows, dsp.slot), x_k)
         hidden = hidden[:, :e * cap].reshape(b, e, cap, d)             # (B, E, C, d)
+        hidden = hints.hint_moe_buffer(hidden, e)
+        grp = tp.group()
+        wi, wg, wo = p.wi, p.wg, p.wo
+        if grp is not None:
+            e0, e1, split = tp.split(e, grp)
+            wi, wg, wo = (tp.take(grp, w, 0, [(e0, e1)], e) for w in (wi, wg, wo))
 
-        g = L.silu(torch.einsum('becd,edf->becf', hidden, p.wg.to(x.dtype)))
-        u = torch.einsum('becd,edf->becf', hidden, p.wi.to(x.dtype))
-        y = torch.einsum('becf,efd->becd', g * u, p.wo.to(x.dtype)).reshape(b, e * cap, d)
+        g = L.silu(torch.einsum('becd,edf->becf', hidden, wg.to(x.dtype)))
+        u = torch.einsum('becd,edf->becf', hidden, wi.to(x.dtype))
+        y = hints.hint_moe_buffer(torch.einsum('becf,efd->becd', g * u, wo.to(x.dtype)), e)
+        if grp is not None and split:
+            y = tp.gather(grp, y, 1)                                   # every expert's outputs
+        y = y.reshape(b, e * cap, d)
 
         # combine: each token gathers its k expert outputs (zero if dropped)
         y_pad = torch.cat([y, y.new_zeros((b, 1, d))], dim=1)
         picked = y_pad[rows, dsp.slot].reshape(b, s, k, d)
-        out = torch.einsum('bskd,bsk->bsd', picked, gate.to(x.dtype))
+        out = hints.hint_batch(torch.einsum('bskd,bsk->bsd', picked, gate.to(x.dtype)))
         if cfg.num_shared_experts:
             out = out + swiglu(p.shared, x)
         return out

@@ -500,3 +500,48 @@ def test_lm_fsdp_step_on_a_one_rank_nccl_layout_equals_single_device(cuda_device
     finally:
         adamw.update = update
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1024, 2048), (8, 1, 10944)])
+def test_tp_partial_product_rounds_as_one_device_matmul(cuda_device, shape):
+    """A row-cut product's float32 partial (`models.tp.partial`, the bf16
+    GEMM with a float32 output), rounded to bf16, has the bits of one
+    device's bf16 matmul: at one rank the layout's sum is a copy, so the
+    tensor-parallel product equals the single-device one."""
+    from repro_torch.models import tp
+    b, t, k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((b, t, k), generator=gen, device=cuda_device).bfloat16()
+    w = (torch.randn((k, 2048), generator=gen, device=cuda_device) / k ** 0.5).bfloat16()
+    got = tp.partial(x, w)
+    assert got.dtype == torch.float32 and got.shape == (b, t, 2048)
+    assert torch.equal(got.bfloat16(), x @ w)
+
+
+@pytest.mark.gpu
+def test_lm_serving_on_a_one_rank_nccl_layout(cuda_device, tmp_path):
+    """Reduced deepseek-v2-lite-16b and zamba2-7b in bf16 served through the
+    layout's steps on a 1 x 1 NCCL layout against one device: the same
+    greedy tokens, and every collective of the tensor-parallel code ran."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import lm_serve, mesh, steps
+    from repro_torch.models import model as M
+    layout = mesh.make_host_mesh(1, 1, f"file://{tmp_path}/rendezvous", 0, cuda_device)
+    try:
+        layout = layout.counting()
+        for name in ("deepseek-v2-lite-16b", "zamba2-7b"):
+            cfg = configs.get(name).reduced()
+            model = M.init_params(cfg, 0, cuda_device)
+            prompts = torch.randint(0, cfg.vocab_size, (4, 16), device=cuda_device,
+                                    generator=torch.Generator(device=cuda_device).manual_seed(1),
+                                    dtype=torch.int32)
+            want = lm_serve.generate(model, prompts, 8).tokens
+            layout.reset_counts()
+            got = lm_serve.generate(steps.shard_params(layout, cfg, model), prompts, 8,
+                                    mesh=layout).tokens
+            assert torch.equal(got, want), name
+            assert layout.counts()["model"]["reduce"]["calls"] > 0
+    finally:
+        dist.destroy_process_group()
