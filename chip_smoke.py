@@ -170,6 +170,23 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              each, the held bytes against the specs; (c) the other nine configs at full width, depth cut as
              phase 16 (d), a prefill and four decode steps on the layout
              against one device.
+20. lm_tp_train — tensor-parallel training over the model axis
+             (`make_train_step(mesh=, dp_over_model=False)`, the
+             differentiable collectives of `models/tp.py`, the
+             vocab-parallel cross-entropy), which launches none of the
+             three kernels: (a) qwen2-0.5b whole at phase 17's 4 x 4096
+             with remat, three steps on a 1 x 1 NCCL layout against phase
+             18's three single-device steps (not run again): equal bits in
+             loss, grad norm, every gradient leaf and every leaf of params,
+             mu, nu and master; the median step beside phase 18's
+             single-device one, both peaks, the census of one step (the
+             fsdp gathers and reduce-scatters; over model the forward's
+             sums and gathers and the backward's sums), a fourth step
+             profiled at 4 x 512 (busy and idle time, the layout's ranges);
+             (b) deepseek-v2-lite-16b and zamba2-7b at full width, depth
+             cut as phase 17 (b), one step each at 2 x 1024 against one
+             device's: equal bits.  At one rank every collective runs as a
+             copy; the tensor-parallel math at p > 1 is the CPU tests'.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
@@ -177,10 +194,10 @@ m2m, probes, serve) zeroes the launch counts just before it and reads them
 just after; dist and sweep2d do so around each distributed engine run (and
 dist around each emulated per-rank descent), so the single-device runs they
 compare with are not counted; lm, train and lm_mesh zero them before their
-runs and require them still 0 after, as lm_serve_mesh does.  lm serves under the port's own
-`torch.inference_mode()`, so its peak memory shows that serving builds no
-graph; only its `forward_train` reference passes run under
-`torch.no_grad()`.  The script prints the card's
+runs and require them still 0 after, as lm_serve_mesh and lm_tp_train
+do.  lm serves under the port's own `torch.inference_mode()`, so its peak
+memory shows that serving builds no graph; only its `forward_train`
+reference passes run under `torch.no_grad()`.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
 last line `{"ok": true, "device": {...}}`.  Without a CUDA card it exits
 non-zero before printing any result.
@@ -2914,6 +2931,61 @@ def mesh_arithmetic(cfg, opt_cfg) -> dict:
 MESH_PROFILE_S = 512      # phase 18's profiled step: 4 x 512 tokens
 
 
+def mesh_train_run(cfg, data, step_fn, model, state, layout=None, dp_over_model: bool = True,
+                   count: int = 3, b: int = 0, s: int = 0, profile: bool = True):
+    """`count` steps at b x s (0: TRAIN_B x TRAIN_S): per step the metrics,
+    the gradients' bits and the time (CUDA events); the peak; the state's
+    bits; the census of the last step; on a layout each batch is the rank's
+    block in the posture `dp_over_model` names."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps
+    b, s = b or TRAIN_B, s or TRAIN_S
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(metrics=[], grads=[], ms=[])
+    for i in range(count):
+        batch = make_batch(cfg, data, i, b, s, LM_DEV)
+        if layout is not None:
+            batch = steps.shard_batch(layout, batch, dp_over_model)
+            layout.reset_counts()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with GradTap() as tap:
+            t0.record()
+            state, m = step_fn(model, state, batch)
+            t1.record()
+        torch.cuda.synchronize()
+        out["ms"].append(t0.elapsed_time(t1))
+        out["metrics"].append({k: v.reshape(1).view(torch.int32).item() for k, v in m.items()})
+        out["grads"].append(host_bits(tap.grads[0]))
+        del tap, batch
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["state"] = state_bits(state)
+    out["counts"] = layout.counts() if layout is not None else None
+    if profile:
+        # A further step under the profiler, after the checked and timed
+        # ones, at MESH_PROFILE_S tokens a row (what a layout adds moves
+        # weights, gradients and, tensor parallel, activations of that
+        # length; at 4096 tokens the flash loops' events take the profiler
+        # a minute to sort): device time of the step and of its ranges.
+        batch = make_batch(cfg, data, count, b, MESH_PROFILE_S, LM_DEV)
+        if layout is not None:
+            batch = steps.shard_batch(layout, batch, dp_over_model)
+        out["profile"] = profile_window(lambda: step_fn(model, state, batch), top=4)
+    return out
+
+
+def bits_differ(want: dict, got: dict) -> list:
+    """Where two `mesh_train_run`s differ: per step each metric and gradient
+    leaf, then each leaf of params, mu, nu and master."""
+    steps_n = len(want["metrics"])
+    differ = [f"step {i} {k}" for i in range(steps_n) for k in want["metrics"][i]
+              if want["metrics"][i][k] != got["metrics"][i][k]]
+    differ += [f"step {i} grad {k}" for i in range(steps_n) for k, g in want["grads"][i].items()
+               if not torch.equal(g, got["grads"][i][k])]
+    return differ + [f"{part} {k}" for part, tree in want["state"].items()
+                     for k, v in tree.items() if not torch.equal(v, got["state"][part][k])]
+
+
 def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
     """18. lm_mesh: the FSDP train step (`make_train_step(mesh=)`) over a
     1 x 1 NCCL layout against the single-device step, qwen2-0.5b whole at
@@ -2924,7 +2996,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
     import tempfile
     import torch.distributed as dist
     from repro_torch import configs
-    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh, steps
     from repro_torch.models import model as M
@@ -2939,42 +3011,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
     log(f"[lm_mesh] spec arithmetic, {cfg.name} at {TRAIN_4K.name} (global batch "
         f"{TRAIN_4K.global_batch}): {json.dumps(arithmetic)}")
 
-    def run(step_fn, model, state, layout=None):
-        """Three steps: per step the metrics, the gradients' bits and the
-        time (CUDA events); the peak; the census of the last step."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        out = dict(metrics=[], grads=[], ms=[])
-        for i in range(3):
-            batch = make_batch(cfg, data, i, TRAIN_B, TRAIN_S, LM_DEV)
-            if layout is not None:
-                batch = steps.shard_batch(layout, batch, True)
-                layout.reset_counts()
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            with GradTap() as tap:
-                t0.record()
-                state, m = step_fn(model, state, batch)
-                t1.record()
-            torch.cuda.synchronize()
-            out["ms"].append(t0.elapsed_time(t1))
-            out["metrics"].append({k: v.reshape(1).view(torch.int32).item() for k, v in m.items()})
-            out["grads"].append(host_bits(tap.grads[0]))
-            del tap, batch
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        out["state"] = state_bits(state)
-        out["counts"] = layout.counts() if layout is not None else None
-        # A fourth step under the profiler, after the checked and timed ones,
-        # at MESH_PROFILE_S tokens a row (what the layout adds, the mesh
-        # step's lm.gather, lm.scatter and lm.reduce, moves weights and
-        # gradients only, the same bytes at any batch; at 4096 tokens the
-        # flash loops' events take the profiler a minute to sort): device
-        # time of the step and of its ranges.
-        batch = make_batch(cfg, data, 3, TRAIN_B, MESH_PROFILE_S, LM_DEV)
-        if layout is not None:
-            batch = steps.shard_batch(layout, batch, True)
-        out["profile"] = profile_window(lambda: step_fn(model, state, batch), top=4)
-        return out
-
+    run = lambda *args: mesh_train_run(cfg, data, *args)
     ops.reset_launches()
     model = M.init_params(cfg, seed, LM_DEV)
     single = run(steps.make_train_step(cfg, opt_cfg, remat=True), model,
@@ -2997,12 +3034,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
             dist.destroy_process_group()
     if any(ops.launches.values()):
         raise AssertionError(f"lm_mesh: the mesh step launched {ops.launches}")
-    differ = [f"step {i} {k}" for i in range(3) for k in single["metrics"][i]
-              if single["metrics"][i][k] != fsdp["metrics"][i][k]]
-    differ += [f"step {i} grad {k}" for i in range(3) for k, g in single["grads"][i].items()
-               if not torch.equal(g, fsdp["grads"][i][k])]
-    differ += [f"{part} {k}" for part, tree in single["state"].items()
-               for k, v in tree.items() if not torch.equal(v, fsdp["state"][part][k])]
+    differ = bits_differ(single, fsdp)
     if differ:
         raise AssertionError(f"lm_mesh: the 1 x 1 mesh step differs from the single-device "
                              f"step in {len(differ)} places: {differ[:8]}")
@@ -3035,6 +3067,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
         f"{gathers['largest'] / 1e6:.1f} MB); kernel launches {dict(ops.launches)}")
     log("[lm_mesh] " + json.dumps(out))
     matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
+    out["single_run"] = single        # phase 20 holds the tensor-parallel step against it
     return out
 
 
@@ -3287,6 +3320,143 @@ def phase_lm_serve_mesh(seed: int, lm: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: tensor-parallel training over the model axis
+# ---------------------------------------------------------------------------
+
+TP_RANGES = ("lm.gather", "lm.scatter", "lm.reduce", "lm.tp_reduce", "lm.tp_gather",
+             "lm.tp_sum", "lm.tp_scatter")
+TP_FAMILIES = ("deepseek-v2-lite-16b", "zamba2-7b")   # (b): MLA + MoE, Mamba2 + attention
+
+
+def tp_census(counts: dict) -> dict:
+    """Calls and bytes of the collectives one tensor-parallel step made: the
+    fsdp gathers and reduce-scatters, the merges, and over the model axis
+    the forward's sums (`lm.tp_reduce`) and gathers (`lm.tp_gather`) and
+    the backward's sums (`grad_sum`, `lm.tp_sum`) and reduce-scatters
+    (`lm.tp_scatter`)."""
+    return {grp: {k: {"calls": c["calls"], "bytes": c["bytes"]} for k, c in cs.items()
+                  if c["calls"]} for grp, cs in counts.items()}
+
+
+def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
+    """20. lm_tp_train: the tensor-parallel train step
+    (`make_train_step(mesh=, dp_over_model=False)`: the weights in
+    `rules.param_spec`'s blocks, cut over the fsdp axes and over model, the
+    layers' collectives differentiable in `models/tp.py`, the
+    vocab-parallel cross-entropy), which launches none of the three
+    kernels.  (a) qwen2-0.5b whole at phase 17's 4 x 4096 with remat,
+    three AdamW steps on a 1 x 1 NCCL layout from phase 17's seed, against
+    phase 18's three single-device steps (`mesh_run["single_run"]`, not
+    run again): equal bits in loss, grad norm, every gradient leaf and
+    every leaf of params, mu, nu and master after the steps.  The step's
+    median ms (steps 2-3) beside phase 18's single-device one, both peaks,
+    the census of one step, a fourth step profiled at MESH_PROFILE_S.
+    (b) deepseek-v2-lite-16b (MLA, MoE, the dense prefix) and zamba2-7b
+    (Mamba2 with attention) at full width, depth cut as phase 17 (b), one
+    step each at 2 x 1024 on the layout against one single-device step:
+    equal bits as in (a).
+
+    What one rank shows: nothing is cut, so every collective of the
+    tensor-parallel code, forward and backward, runs as a copy at the real
+    widths, and the step must give one device's bits; it does not show the
+    tensor-parallel math at p > 1, which the CPU tests hold over gloo at
+    1 x 2, 1 x 4 and 2 x 2 (tests/test_torch_lm_tp_train*.py).  No leaf is
+    held at a bound: every one must be equal."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    matmul = torch.backends.cuda.matmul
+    reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False    # as phases 16-18
+    cfg, opt_cfg, data = configs.get(TRAIN_ARCH), adamw.OptConfig(**TRAIN_OPT), \
+        DataConfig(seed, "lm")
+    single = mesh_run.pop("single_run")
+    ops.reset_launches()
+    family = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_tp_train_") as tmp:
+        layout = mesh.make_host_mesh(1, 1, f"file://{tmp}/rendezvous", 0, LM_DEV)
+        try:
+            layout = layout.counting()
+
+            def tp_run(c, count, b, s, profile):
+                whole = M.init_params(c, seed, LM_DEV)
+                state = steps.shard_state(layout, steps.init_train_state(whole, opt_cfg))
+                del whole
+                torch.cuda.empty_cache()
+                return mesh_train_run(
+                    c, data, steps.make_train_step(c, opt_cfg, remat=True, mesh=layout,
+                                                   dp_over_model=False),
+                    M.LMModel(c, None, "meta"), state, layout, False, count, b, s, profile)
+
+            tp = tp_run(cfg, 3, TRAIN_B, TRAIN_S, True)
+            torch.cuda.empty_cache()
+            for name in TP_FAMILIES:
+                c = dataclasses.replace(configs.get(name), num_layers=LM_DEPTH.get(name, 2))
+                model = M.init_params(c, seed, LM_DEV)
+                one = mesh_train_run(c, data, steps.make_train_step(c, opt_cfg, remat=True),
+                                     model, steps.init_train_state(model, opt_cfg), None, True,
+                                     1, TRAIN_SMALL_B, TRAIN_SMALL_S, False)
+                del model
+                torch.cuda.empty_cache()
+                got = tp_run(c, 1, TRAIN_SMALL_B, TRAIN_SMALL_S, False)
+                torch.cuda.empty_cache()
+                differ = bits_differ(one, got)
+                if differ:
+                    raise AssertionError(f"lm_tp_train (b) {name}: the 1 x 1 tensor-parallel "
+                                         f"step differs from one device's in {len(differ)} "
+                                         f"places: {differ[:8]}")
+                family[name] = dict(layers=c.num_layers, equal_bits=True,
+                                    leaves=len(one["grads"][0]), single_ms=one["ms"][0],
+                                    tp_ms=got["ms"][0], single_peak_gib=one["peak_gib"],
+                                    tp_peak_gib=got["peak_gib"],
+                                    census_one_step=tp_census(got["counts"]))
+                log(f"[lm_tp_train] (b) {name} at full width, {c.num_layers} layers, "
+                    f"{TRAIN_SMALL_B} x {TRAIN_SMALL_S} ({card}): equal bits in one step "
+                    f"({family[name]['leaves']} gradient leaves, params, mu, nu, master); "
+                    f"single {one['ms'][0]:.2f} ms, tensor parallel {got['ms'][0]:.2f} ms; "
+                    f"peaks {one['peak_gib']:.2f} / {got['peak_gib']:.2f} GiB")
+        finally:
+            dist.destroy_process_group()
+    if any(ops.launches.values()):
+        raise AssertionError(f"lm_tp_train: the tensor-parallel step launched {ops.launches}")
+    differ = bits_differ(single, tp)
+    if differ:
+        raise AssertionError(f"lm_tp_train: the 1 x 1 tensor-parallel step differs from the "
+                             f"single-device step in {len(differ)} places: {differ[:8]}")
+    med = lambda ms: float(np.median(ms[1:]))
+    ranges = tp["profile"]["layers_device_ms"]
+    census = tp_census(tp["counts"])
+    out = dict(model=cfg.name, batch=TRAIN_B, seq=TRAIN_S, steps=3, equal_bits=True,
+               leaves=len(single["grads"][0]), single_step_ms=single["ms"], tp_step_ms=tp["ms"],
+               single_median_ms=med(single["ms"]), tp_median_ms=med(tp["ms"]),
+               single_peak_gib=single["peak_gib"], tp_peak_gib=tp["peak_gib"],
+               census_one_step=census, launches=dict(ops.launches), card=card,
+               ranges_device_ms={k: ranges.get(k, 0.0) for k in TP_RANGES},
+               profile_single=single["profile"], profile_tp=tp["profile"], families=family)
+    log(f"[lm_tp_train] profiled fourth step, {TRAIN_B} x {MESH_PROFILE_S} ({card}): wall "
+        f"{tp['profile']['wall_ms']:.3f} ms, device busy {tp['profile']['device_busy_ms']:.3f} "
+        f"ms (single {single['profile']['device_busy_ms']:.3f}), idle share "
+        f"{tp['profile']['idle_share']}; ranges (device ms) "
+        f"{json.dumps(out['ranges_device_ms'])}")
+    log(f"[lm_tp_train] census of one step ({card}): {json.dumps(census)}")
+    log(f"[lm_tp_train] (a) {cfg.name} whole, {TRAIN_B} x {TRAIN_S}, remat, 3 steps ({card}): "
+        f"the 1 x 1 NCCL tensor-parallel step equals the single-device step bit for bit "
+        f"(loss, grad norm, {out['leaves']} gradient leaves a step, params, mu, nu, master); "
+        f"median step (steps 2-3) single {out['single_median_ms']:.2f} ms, tensor parallel "
+        f"{out['tp_median_ms']:.2f} ms ({out['tp_median_ms'] / out['single_median_ms'] - 1:+.2%}"
+        f"); peak single {out['single_peak_gib']:.2f} GiB, tensor parallel "
+        f"{out['tp_peak_gib']:.2f} GiB; kernel launches {dict(ops.launches)}")
+    log("[lm_tp_train] " + json.dumps(out))
+    matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -3298,7 +3468,7 @@ def check_same_state(tag: str, a, b) -> None:
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
           "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train", "lm_mesh",
-          "lm_serve_mesh")
+          "lm_serve_mesh", "lm_tp_train")
 
 
 def main() -> int:
@@ -3360,6 +3530,8 @@ def main() -> int:
             run[name] = phase_lm_mesh(args.seed, run["train"], card)
         elif name == "lm_serve_mesh":
             run[name] = phase_lm_serve_mesh(args.seed, run["lm"], card)
+        elif name == "lm_tp_train":
+            run[name] = phase_lm_tp_train(args.seed, run["lm_mesh"], card)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
@@ -3388,6 +3560,7 @@ def main() -> int:
         k["train_launches"] = run["train"]["launches"].get(k["name"], 0)
         k["lm_mesh_launches"] = run["lm_mesh"]["launches"].get(k["name"], 0)
         k["lm_serve_mesh_launches"] = run["lm_serve_mesh"]["launches"].get(k["name"], 0)
+        k["lm_tp_train_launches"] = run["lm_tp_train"]["launches"].get(k["name"], 0)
     for k in kernels:
         log(f"[kernels] {k['name']}: {k['ms']:.4f} ms against a {k['bound_ms']:.4f} ms bound "
             f"({k['bound_ms'] / k['ms'] * 100:.1f} % of the bound)")

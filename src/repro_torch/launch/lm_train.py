@@ -14,9 +14,17 @@ the monitor's window, so the monitor times the finished step.
 
 `--data D --model M` trains on a D x M layout of spawned ranks
 (`launch.distributed.run_ranks`; NCCL, one card a rank, or gloo with
-`--device cpu`): the FSDP step with the model axis carrying batch blocks
-(`dp_over_model=True`) and remat, each rank holding its blocks of the
-state and of each step's batch.  A checkpoint is the whole state, brought
+`--device cpu`): the FSDP step with remat, each rank holding its blocks of
+the state and of each step's batch, in the posture the reference's dry run
+picks (`steps.use_dp_over_model`): the model axis carrying batch blocks
+where the train state fits a rank at fsdp-only sharding and the batch
+divides the layout, else tensor parallel over it; `--tensor-parallel`
+takes the tensor-parallel posture (`dp_over_model=False`) whatever fits:
+
+    PYTHONPATH=src python -m repro_torch.launch.lm_train --data 2 --model 2 --device cpu \
+        --tensor-parallel
+
+A checkpoint is the whole state, brought
 to rank 0's host (`sharding.rules.gather_tree_to_host`); a resume restores it on
 every rank and keeps the rank's blocks (`runtime.failures.reshard`), so it
 may resume on another layout.
@@ -77,6 +85,7 @@ class TrainJob:
     seq: int
     lr: float
     ckpt_dir: str = ""
+    tensor_parallel: bool = False
 
     def run(self, mesh, device) -> dict:
         from repro_torch.checkpoint.manager import CheckpointManager, latest_step
@@ -88,8 +97,9 @@ class TrainJob:
         cfg = config(self.arch, self.preset)
         opt_cfg = adamw.OptConfig(peak_lr=self.lr, warmup_steps=20, total_steps=self.steps)
         log = print if mesh.rank == 0 else (lambda _: None)
-        log(f"arch={cfg.name} batch={self.batch} seq={self.seq} layout "
-            f"{mesh.shape} ({device})")
+        dp = not self.tensor_parallel and steps.use_dp_over_model(cfg, mesh, self.batch)
+        log(f"arch={cfg.name} batch={self.batch} seq={self.seq} layout {mesh.shape} "
+            f"({device}), {'dp_over_model' if dp else 'tensor parallel over model'}")
         whole = steps.init_train_state(M.init_params(cfg, 0, device), opt_cfg)
         mgr, start, save = None, 0, None
         if self.ckpt_dir:
@@ -97,21 +107,21 @@ class TrainJob:
             if latest_step(self.ckpt_dir) is not None:
                 whole, start = mgr.restore(whole)
                 log(f"resumed at step {start}")
-            specs = steps.state_shardings(mesh, cfg, opt_cfg, dp_over_model=True)
+            specs = steps.state_shardings(mesh, cfg, opt_cfg, dp_over_model=dp)
 
             def save(state, step):
                 host = rules.gather_tree_to_host(specs, state, group_of=mesh.group,
                                                  coords=mesh.coords)
                 if host is not None:
                     mgr.save(host, step)
-        state = steps.shard_state(mesh, whole, dp_over_model=True)
+        state = steps.shard_state(mesh, whole, dp_over_model=dp)
         del whole
         data = DataConfig(seed=0)
         losses = train_loop(
-            steps.make_train_step(cfg, opt_cfg, remat=True, mesh=mesh, dp_over_model=True),
+            steps.make_train_step(cfg, opt_cfg, remat=True, mesh=mesh, dp_over_model=dp),
             M.LMModel(cfg, None, "meta"), state,
             lambda i: steps.shard_batch(mesh, make_batch(cfg, data, i, self.batch, self.seq,
-                                                         device), True),
+                                                         device), dp),
             start, self.steps, save, log)
         if mgr is not None:
             mgr.close()
@@ -131,12 +141,15 @@ def main(argv=None) -> None:
     ap.add_argument("--data", type=int, default=0,
                     help="train on a data x model layout of ranks (0: one device, no layout)")
     ap.add_argument("--model", type=int, default=1, help="model axis size of the layout")
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="on a layout: tensor parallel over the model axis (dp_over_model=False) "
+                         "whether or not the state fits a rank at fsdp-only sharding")
     args = ap.parse_args(argv)
 
     if args.data:
         from repro_torch.launch.distributed import run_ranks
         job = TrainJob(args.arch, args.preset, args.steps, args.batch, args.seq, args.lr,
-                       args.ckpt_dir)
+                       args.ckpt_dir, args.tensor_parallel)
         run_ranks(args.data * args.model, [job], args.device, timeout_s=24 * 3600.0,
                   lm=(args.data, args.model))
         return

@@ -8,6 +8,7 @@ are the collectives the reference's helpers take as callables:
     gather(x)       lax.all_gather(x, tiled=True)   dist.all_gather_into_tensor
     merge(x)        lax.psum(x)                     dist.all_reduce(SUM)
     reduce(x)       lax.psum(x) in float32          dist.all_reduce(SUM)
+    grad_sum(x)     (a backward's float32 psum)     dist.all_reduce(SUM)
     scatter_sum(x)  lax.psum_scatter(x, dim 0)      dist.reduce_scatter_tensor
     all_to_all(x)   lax.all_to_all(x, 0, 0)         dist.all_to_all_single
     gather_objects  (host objects, results only)    dist.all_gather_object
@@ -77,6 +78,12 @@ class Group:
         dist.all_reduce(out, group=self.pg)
         return out
 
+    def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """`reduce` in a backward: the float32 sum of every rank's partial
+        gradient (the tensor-parallel step's sums over the model axis,
+        counted apart from the forward's)."""
+        return self.reduce(x)
+
     def scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
         """x: (size, ...) -> (...): block `rank` of the sum over ranks."""
         out = x.new_empty(tuple(x.shape[1:]))
@@ -137,19 +144,20 @@ class ShapeGroup:
     def _none(self, x):
         raise RuntimeError("ShapeGroup performs no collectives")
 
-    gather = merge = reduce = scatter_sum = all_to_all = gather_objects = _none
+    gather = merge = reduce = grad_sum = scatter_sum = all_to_all = gather_objects = _none
     gather_to_host = _none
 
 
 class CountingGroup:
     """A group that counts, per collective, its calls and the elements and
     bytes of the whole vector it moves: a gather's output, a merge's input,
-    a reduce's float32 vector, a scatter_sum's and an all_to_all's input, a
+    a reduce's and a grad_sum's float32 vector, a scatter_sum's and an
+    all_to_all's input, a
     gather_to_host's parts (as sent).  "largest" is the most bytes one call
     moved (for gather_to_host, one message)."""
 
     NAMES = ("gather", "merge", "scatter_sum", "gather_objects", "gather_to_host")
-    LM_NAMES = NAMES + ("reduce", "all_to_all")     # the LM layout's groups count these too
+    LM_NAMES = NAMES + ("reduce", "grad_sum", "all_to_all")   # the LM layout's groups too
 
     def __init__(self, inner, names: Sequence[str] = NAMES):
         self.inner, self.names = inner, tuple(names)
@@ -180,6 +188,11 @@ class CountingGroup:
     def reduce(self, x):
         out = self.inner.reduce(x)
         self._count("reduce", out)
+        return out
+
+    def grad_sum(self, x):
+        out = self.inner.grad_sum(x)
+        self._count("grad_sum", out)
         return out
 
     def scatter_sum(self, x):

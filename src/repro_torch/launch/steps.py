@@ -18,9 +18,14 @@ master (`shard_state`, `runtime.failures.reshard`), gathers each unit's
 weights just before the unit runs (again in a remat unit's
 recomputation) and drops them after, reduce-scatters each unit's
 gradients in the gather's backward, reduces what the spec leaves whole
-over the other axes, and runs AdamW on its blocks.  Tensor-parallel
-training over the model axis (the reference's other posture) is not
-ported: with model > 1 the step needs `dp_over_model=True`.
+over the other axes, and runs AdamW on its blocks.  With
+`dp_over_model=True` the model axis carries batch blocks and the layers
+run their single-device code; with `dp_over_model=False` (the reference's
+tensor-parallel posture, at any model-axis size) the weights stay in
+`rules.param_spec`'s blocks, cut over the fsdp axes on one dim and over
+the model axis on another, the batch is whole over model, and the layers
+compute the rank's blocks (`models.tp`), whose collectives carry their
+conjugates in the backward.
 
 `make_prefill_step(cfg, mesh=)` and `make_decode_step(cfg, mesh=)` serve
 over a layout, as the reference's do: each rank holds its blocks of the
@@ -221,12 +226,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, remat: bool = Tr
     new count, as the reference's (0-d tensors on the device).
 
     mesh: an `LMGroups` layout.  Then the step is this rank's part of the
-    FSDP step (`_FSDPStep`): `state` holds the rank's blocks as
-    `state_shardings(mesh, cfg, opt_cfg, dp_over_model)` places them,
-    `batch` is the rank's block of the global batch (`shard_batch`), and
-    `model` is a model of `cfg` whose parameters the step does not read (a
-    meta-device one, `M.LMModel(cfg, None, "meta")`): each unit's gathered
-    weights are put in it while the unit runs."""
+    FSDP step (`_FSDPStep`) in the posture `dp_over_model` names (True: the
+    model axis carries batch blocks; False: tensor parallel over it):
+    `state` holds the rank's blocks as `state_shardings(mesh, cfg, opt_cfg,
+    dp_over_model)` places them, `batch` is the rank's block of the global
+    batch (`shard_batch(mesh, batch, dp_over_model)`; under the
+    tensor-parallel posture the global batch must divide the fsdp axes),
+    and `model` is a model of `cfg` whose parameters the step does not
+    read (a meta-device one, `M.LMModel(cfg, None, "meta")`): each unit's
+    gathered weights are put in it while the unit runs."""
     if mesh is not None:
         return _FSDPStep(cfg, opt_cfg, remat, mesh, dp_over_model)
 
@@ -376,18 +384,34 @@ class _Serving:
 
 class _Leaf(NamedTuple):
     """How the FSDP step holds one parameter."""
-    dim: Optional[int]            # the dim cut over `axes` (None: whole on every rank)
-    axes: Tuple[str, ...]         # the axes that cut it
-    rest: Tuple[str, ...]         # the layout's other axes (its gradient is summed over them)
+    dim: Optional[int]            # the dim cut over `axes` (None: whole over them)
+    axes: Tuple[str, ...]         # the fsdp axes that cut it (gathered per unit)
+    rest: Tuple[str, ...]         # the axes its gradient is summed over
+    copies: Tuple[str, ...] = ()  # the axes whose ranks hold copies of its block
+    model_dim: Optional[int] = None   # the dim cut over the model axis (a TP block)
 
 
-def _leaf_plan(mesh, name: str, leaf: torch.Tensor) -> _Leaf:
-    spec = rules.param_spec_dp(mesh, (name,), leaf)
+def _leaf_plan(mesh, name: str, leaf: torch.Tensor, tensor_parallel: bool = False) -> _Leaf:
+    """The DP posture (`rules.param_spec_dp`): one dim cut over the fsdp
+    axes, the gradient summed over every other axis (the model axis carries
+    batch blocks).  The tensor-parallel posture (`rules.param_spec`): a dim
+    cut over the fsdp axes and another over the model axis, left as the
+    rank's block for the layers (`models.tp.take`); the gradient summed
+    over the fsdp axes that do not cut it, never over the model axis (the
+    layers' backward sums over it where a rank's gradient is a partial)."""
+    spec = (rules.param_spec if tensor_parallel else rules.param_spec_dp)(mesh, (name,), leaf)
     cuts = [(d, rules.entry_axes(e)) for d, e in enumerate(spec) if e is not None]
-    if len(cuts) > 1:
-        raise ValueError(f"{name}: the DP specs cut one dim, not {spec}")
-    dim, axes = cuts[0] if cuts else (None, ())
-    return _Leaf(dim, axes, tuple(a for a in mesh.axes if a not in axes))
+    model = [d for d, axes in cuts if rules.MODEL in axes]
+    fsdp = [(d, axes) for d, axes in cuts if rules.MODEL not in axes]
+    if len(fsdp) > 1 or len(model) > 1 or any(
+            axes != (rules.MODEL,) for _, axes in cuts if rules.MODEL in axes):
+        raise ValueError(f"{name}: a spec cuts one dim over the fsdp axes and one over the "
+                         f"model axis, not {spec}")
+    dim, axes = fsdp[0] if fsdp else (None, ())
+    cut = set(axes) | ({rules.MODEL} if model else set())
+    copies = tuple(a for a in mesh.axes if a not in cut)
+    rest = tuple(a for a in copies if not (tensor_parallel and a == rules.MODEL))
+    return _Leaf(dim, axes, rest, copies, model[0] if model else None)
 
 
 class _GatherUnit(torch.autograd.Function):
@@ -472,43 +496,58 @@ def _bound(slots: Dict[str, Tuple[torch.nn.Module, str]], tensors: Dict[str, tor
 
 
 class _FSDPStep:
-    """`make_train_step(mesh=)`: this rank's part of the FSDP train step.
+    """`make_train_step(mesh=)`: this rank's part of the FSDP train step, in
+    one of the reference's two postures.
 
     * Units (`models.model`): entering one gathers the whole weights of its
-      cut leaves in one collective over their axes' group (`_GatherUnit`)
-      and puts them in the model; leaving drops them.  Under remat the
-      recomputation gathers again.
-    * Gradients: each rank backpropagates its local mean loss weighted by
-      1 / world, so sums over ranks give the global mean's gradient: a cut
-      leaf's is reduce-scattered over its axes by the gather's backward,
-      then every leaf's is summed over the layout's other axes (one merge
-      per group and dtype): for a leaf whole on every rank, the world.
+      leaves' fsdp blocks in one collective over their axes' group
+      (`_GatherUnit`) and puts them in the model; leaving drops them.
+      Under remat the recomputation gathers again.
+    * DP over model (dp_over_model=True, `rules.param_spec_dp`): the batch
+      is cut over every axis, the weights over the fsdp axes only; the
+      layers run their single-device code on the gathered weights, and
+      each rank backpropagates its local mean loss weighted by 1 / world.
+    * Tensor parallel (dp_over_model=False, `rules.param_spec`, at any size
+      of the model axis): the batch is cut over the fsdp axes and is whole
+      over model; a leaf may be cut over the fsdp axes on one dim and over
+      model on another, and the gathered weights are the rank's model
+      blocks, which the layers compute with (`models.tp`, installed by
+      `hints.layout`).  Every model rank computes the same loss, weighted
+      by 1 / (the number of batch blocks, the fsdp axes' product), and the
+      backward of the layers' collectives leaves on every rank the whole
+      gradient of the part of each leaf it holds: a leaf whole over model
+      but used by each rank for its own part (wk and wv where model
+      divides the query heads but not the KV heads, the in_proj entries a
+      rank narrows, the norms of its heads) is summed over model in
+      `models.tp.take`'s backward.  The step never sums over model.
+    * Gradients: a cut leaf's is reduce-scattered over its fsdp axes by the
+      gather's backward, then every leaf's is summed over `_Leaf.rest`
+      (one merge per group and dtype): the axes that hold copies of it,
+      less model in the tensor-parallel posture.
     * The optimizer runs on the blocks.  The global norm: each leaf's local
       sum of squares, counted only on the ranks at coordinate 0 of every
-      axis that holds copies of its block, one merge over the world of the
-      vector of those sums (and the local loss), then the sum in the
-      reference's leaf order (`adamw.norm_of`): at one rank, the
-      single-device step's bits.
-    * With model > 1 only the DP posture is ported; with model == 1 the two
-      postures place the same blocks, and the step plans by the DP specs."""
+      axis that holds copies of its block (a leaf cut over model on every
+      model rank, a leaf whole over it on model rank 0), one merge over the
+      world of the vector of those sums (and the local loss, counted once
+      per batch block), then the sum in the reference's leaf order
+      (`adamw.norm_of`): at one rank, the single-device step's bits."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: adamw.OptConfig, remat: bool, mesh,
                  dp_over_model: bool):
-        if mesh.shape.get(rules.MODEL, 1) > 1 and not dp_over_model:
-            raise NotImplementedError(
-                "tensor parallelism over the model axis is not ported for training yet: it "
-                "is the next slice of ROADMAP.md's Queue 1 (item 13 (c), training over the "
-                "model axis; serving over it is make_prefill_step / make_decode_step(mesh=)): "
-                "pass dp_over_model=True, or a layout with model == 1")
         self.cfg, self.opt_cfg, self.remat, self.mesh = cfg, opt_cfg, remat, mesh
-        self.plan = {k: _leaf_plan(mesh, k, p) for k, p in abstract_params(cfg).items()}
+        self.tp = not dp_over_model
+        self.plan = {k: _leaf_plan(mesh, k, p, self.tp) for k, p in abstract_params(cfg).items()}
         self.order = adamw.leaf_order(self.plan)
-        self.counted = {k: not any(mesh.coords[a][0] for a in lf.rest)
+        self.counted = {k: not any(mesh.coords[a][0] for a in lf.copies)
                         for k, lf in self.plan.items()}
+        # the batch blocks: every rank's under DP, the fsdp axes' under TP
+        self.blocks = math.prod(mesh.shape[a] for a in rules.fsdp_axes(mesh)) if self.tp \
+            else mesh.size
+        self.loss_counted = not (self.tp and mesh.coords.get(rules.MODEL, (0, 1))[0])
 
     def _sum_rest(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Every leaf's gradient summed over the layout's axes that do not
-        cut it: one merge per (group, dtype)."""
+        """Every leaf's gradient summed over its `rest` axes: one merge per
+        (group, dtype)."""
         buckets: Dict[tuple, List[str]] = {}
         for k in self.order:
             buckets.setdefault((self.plan[k].rest, grads[k].dtype), []).append(k)
@@ -523,7 +562,7 @@ class _FSDPStep:
         return out
 
     def __call__(self, model: M.LMModel, state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        mesh, world = self.mesh, self.mesh.size
+        mesh = self.mesh
         with record_function("lm.train_step"):
             blocks = state.params
             for p in blocks.values():
@@ -532,14 +571,18 @@ class _FSDPStep:
             unit = _gathering_unit(mesh, self.plan, model, blocks, slots)
             whole = {k: blocks[k] for k, lf in self.plan.items() if lf.dim is None}
             names = list(blocks)
-            # The step plans by the DP specs: the anchors are the identity and
-            # the layers run their single-device code on the gathered weights.
-            with hints.layout(mesh, dp_over_model=True), _bound(slots, whole):
+            # DP: the anchors are the identity and the layers run their
+            # single-device code on the gathered weights.  TP: the layers
+            # compute the rank's blocks over the model group.
+            posture = hints.layout(mesh, dp_over_model=True) if not self.tp else \
+                hints.layout(mesh, dp_over_model=False, unit=unit)
+            with posture, _bound(slots, whole):
                 with record_function("lm.loss"):
                     local = M.loss_fn(model, batch["inputs"], batch["labels"],
                                       remat=self.remat, unit=unit)
                 with record_function("lm.backward"):
-                    weight = torch.full((), 1.0 / world, dtype=local.dtype, device=local.device)
+                    weight = torch.full((), 1.0 / self.blocks, dtype=local.dtype,
+                                        device=local.device)
                     grads = dict(zip(names, torch.autograd.grad(
                         local, [blocks[k] for k in names], weight)))
             with record_function("lm.reduce"):
@@ -547,8 +590,9 @@ class _FSDPStep:
                 sums = adamw.square_sums({k: grads[k] for k in self.order if self.counted[k]})
                 zero = torch.zeros((), dtype=torch.float32, device=local.device)
                 total = mesh.world.merge(torch.stack(
-                    [local.detach()] + [sums.get(k, zero) for k in self.order]))
-                loss = total[0] / world
+                    [local.detach() if self.loss_counted else zero]
+                    + [sums.get(k, zero) for k in self.order]))
+                loss = total[0] / self.blocks
                 gnorm = adamw.norm_of(dict(zip(self.order, total[1:])))
             with record_function("lm.optim"):
                 params, opt = adamw.update(grads, state.opt, blocks, self.opt_cfg, gnorm=gnorm)

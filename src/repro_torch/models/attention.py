@@ -339,19 +339,19 @@ def _gqa_tp(p: GQA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache],
     kv_split = split and kv_heads % g.size == 0
     k0, k1 = (h0 * kv_heads // heads, h1 * kv_heads // heads) if kv_split else (0, kv_heads)
     q_cols, kv_cols = [(h0 * hd, h1 * hd)], [(k0 * hd, k1 * hd)]
-    q = x @ tp.take(g, p.wq, 1, q_cols, heads * hd).to(x.dtype)
-    k = x @ tp.take(g, p.wk, 1, kv_cols, kv_heads * hd).to(x.dtype)
-    v = x @ tp.take(g, p.wv, 1, kv_cols, kv_heads * hd).to(x.dtype)
+    q = tp.column(g, x, tp.take(g, p.wq, 1, q_cols, heads * hd, split), split)
+    k = tp.column(g, x, tp.take(g, p.wk, 1, kv_cols, kv_heads * hd, split), split)
+    v = tp.column(g, x, tp.take(g, p.wv, 1, kv_cols, kv_heads * hd, split), split)
     if cfg.qkv_bias:
-        q = q + tp.take(g, p.bq, 0, q_cols, heads * hd).to(x.dtype)
-        k = k + tp.take(g, p.bk, 0, kv_cols, kv_heads * hd).to(x.dtype)
-        v = v + tp.take(g, p.bv, 0, kv_cols, kv_heads * hd).to(x.dtype)
+        q = q + tp.take(g, p.bq, 0, q_cols, heads * hd, split).to(x.dtype)
+        k = k + tp.take(g, p.bk, 0, kv_cols, kv_heads * hd, split).to(x.dtype)
+        v = v + tp.take(g, p.bv, 0, kv_cols, kv_heads * hd, split).to(x.dtype)
     q = q.reshape(b, t, h1 - h0, hd)
     k = k.reshape(b, t, k1 - k0, hd)
     v = v.reshape(b, t, k1 - k0, hd)
     if cfg.qk_norm:
-        q = p.q_norm(q, cfg.norm_eps)
-        k = p.k_norm(k, cfg.norm_eps)
+        q = L.rms_norm(q, tp.take(g, p.q_norm.scale, 0, [(0, hd)], hd, split), cfg.norm_eps)
+        k = L.rms_norm(k, tp.take(g, p.k_norm.scale, 0, [(0, hd)], hd, split), cfg.norm_eps)
     positions = _positions(b, t, cache_pos if decode else None, x.device)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -461,15 +461,18 @@ def _mla_tp(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Cache],
     h0, h1, split = tp.split(heads, g)
     hl = h1 - h0
 
-    q = (x @ tp.take(g, p.wq, 1, [(h0 * nq, h1 * nq)], heads * nq).to(x.dtype))
+    q = tp.column(g, x, tp.take(g, p.wq, 1, [(h0 * nq, h1 * nq)], heads * nq, split), split)
     q = q.reshape(b, t, hl, nq)
     q_nope = q[..., :MLA_QK_NOPE]
     q_rope = L.apply_rope(q[..., MLA_QK_NOPE:], positions, cfg.rope_theta)
-    c = p.c_norm(tp.whole(g, x @ p.w_dkv.to(x.dtype), 2, r), cfg.norm_eps)     # (B,T,r)
-    kr = L.apply_rope((x @ tp.take(g, p.w_kr, 1, [(0, rd)], rd).to(x.dtype))[:, :, None, :],
-                      positions, cfg.rope_theta)                               # (B,T,1,rd)
-    w_uk = tp.take(g, p.w_uk, 1, [(h0, h1)], heads)
-    w_uv = tp.take(g, p.w_uv, 1, [(h0, h1)], heads)
+    cut = p.w_dkv.shape[1] != r          # x @ w_dkv comes out as the rank's block of r
+    w_dkv = p.w_dkv if cut else tp.take(g, p.w_dkv, 1, [(0, r)], r, split)
+    c = tp.whole(g, tp.column(g, x, w_dkv, split or cut), 2, r, split)
+    c = L.rms_norm(c, tp.take(g, p.c_norm.scale, 0, [(0, r)], r, split), cfg.norm_eps)  # (B,T,r)
+    kr = tp.column(g, x, tp.take(g, p.w_kr, 1, [(0, rd)], rd, split), split)
+    kr = L.apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)          # (B,T,1,rd)
+    w_uk = tp.take(g, p.w_uk, 1, [(h0, h1)], heads, split)
+    w_uv = tp.take(g, p.w_uv, 1, [(h0, h1)], heads, split)
     if cache is not None:
         start = tp.seq_block(g, cache, "c")[0]
         p0 = 0 if cache_pos is None else cache_pos

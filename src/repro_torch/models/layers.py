@@ -122,7 +122,7 @@ def embed_split(g, table: torch.Tensor, tokens: torch.Tensor, vocab: int) -> tor
     is whole and this is `embed`."""
     from repro_torch.models import tp
     v0, v1, split = tp.split(vocab, g)
-    rows = tp.take(g, table, 0, [(v0, v1)], vocab)
+    rows = tp.take(g, table, 0, [(v0, v1)], vocab, split)
     if not split:
         return embed(rows, tokens)
     inside = (tokens >= v0) & (tokens < v1)

@@ -198,14 +198,14 @@ def _mamba2_tp(params: Mamba2, x: torch.Tensor, cfg: ModelConfig, cache: Optiona
     hl, dl = h1 - h0, (h1 - h0) * p
     dt0 = 2 * d_inner + 2 * n
     cols = [(h0 * p, h1 * p), (d_inner, dt0), (dt0 + h0, dt0 + h1)]
-    zxbcdt = x @ tp.take(g, params.in_proj, 1, cols, dt0 + nheads).to(x.dtype)
+    zxbcdt = tp.column(g, x, tp.take(g, params.in_proj, 1, cols, dt0 + nheads, split), split)
     z, xbc, dt_raw = torch.split(zxbcdt, [dl, conv_dim, hl], dim=-1)
     heads = [(h0, h1)]
-    dt = F.softplus(dt_raw.float() + tp.take(g, params.dt_bias, 0, heads, nheads))
-    a_log = tp.take(g, params.a_log, 0, heads, nheads)
-    d_skip = tp.take(g, params.d_skip, 0, heads, nheads)
-    conv_w = tp.take(g, params.conv_w, 1, [(0, conv_dim)], conv_dim)
-    conv_b = tp.take(g, params.conv_b, 0, [(0, conv_dim)], conv_dim)
+    dt = F.softplus(dt_raw.float() + tp.take(g, params.dt_bias, 0, heads, nheads, split))
+    a_log = tp.take(g, params.a_log, 0, heads, nheads, split)
+    d_skip = tp.take(g, params.d_skip, 0, heads, nheads, split)
+    conv_w = tp.take(g, params.conv_w, 1, [(0, conv_dim)], conv_dim, split)
+    conv_b = tp.take(g, params.conv_b, 0, [(0, conv_dim)], conv_dim, split)
     own = slice(h0 * p, h1 * p)
 
     if cache is not None and t == 1:
@@ -239,8 +239,8 @@ def _mamba2_tp(params: Mamba2, x: torch.Tensor, cfg: ModelConfig, cache: Optiona
     yz = y * L.silu(z)
     yf = yz.float()
     sq = torch.sum(yf * yf, dim=-1, keepdim=True)
-    if split:
-        sq = tp.reduce(g, sq)
-    scale = tp.take(g, params.norm.scale, 0, [(h0 * p, h1 * p)], d_inner)
+    if split:   # every rank normalises its own block with the sum: its gradient is a partial
+        sq = tp.enter(g, tp.reduce(g, sq))
+    scale = tp.take(g, params.norm.scale, 0, [(h0 * p, h1 * p)], d_inner, split)
     yn = (yf * torch.rsqrt(sq / d_inner + cfg.norm_eps) * scale.float()).to(yz.dtype)
     return tp.row(g, yn, params.out_proj, [(h0 * p, h1 * p)], d_inner, split), cache

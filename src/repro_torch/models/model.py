@@ -40,7 +40,12 @@ there and drops them after.  A remat unit's recomputation enters it again.
 Training: `forward_train(remat=True)` recomputes each layer in the
 backward (`torch.utils.checkpoint`, the reference's per-layer
 `jax.checkpoint(nothing_saveable)`: each scanned layer, each MoE
-super-layer, each hybrid body); `loss_fn` is the mean cross-entropy.
+super-layer, each hybrid body, recomputed under the layout the forward
+ran under); `loss_fn` is the mean cross-entropy, vocab-parallel
+(`_VocabCrossEntropy`) where the tensor-parallel train step
+(`launch.steps.make_train_step(mesh=, dp_over_model=False)`) cuts the
+logits' vocab over the model axis; the layers' collectives carry their
+backward (`models.tp`).
 Prefill and decode run under `torch.inference_mode()`: serving builds no
 autograd graph.
 """
@@ -217,8 +222,15 @@ def _no_unit(*modules) -> contextlib.AbstractContextManager:
 
 
 def _unit(body, x, remat: bool):
-    """One remat unit: `body(x) -> x`, recomputed in the backward if remat."""
-    return checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    """One remat unit: `body(x) -> x`, recomputed in the backward if remat.
+    The recomputation runs under the layout the forward ran under
+    (`sharding.hints`, which is per thread: autograd runs a card's backward
+    on a thread of its own)."""
+    if not remat:
+        return body(x)
+    installed = hints.installed()
+    return checkpoint(body, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), hints.layout(*installed)))
 
 
 def _run(apply_fn, layers, x, cfg, caches, cache_pos, remat=False, unit: Unit = _no_unit):
@@ -292,18 +304,23 @@ def backbone(model: LMModel, x: torch.Tensor, caches: Optional[Caches] = None,
 
 def _logits(model: LMModel, x: torch.Tensor, unit: Unit = _no_unit) -> torch.Tensor:
     """f32 logits; on a layout the rank's vocab block (the tied table's rows
-    or the head's columns: no collective)."""
+    or the head's columns: no collective in the forward; x's gradient, a
+    partial of the rank's block, is summed over the model axis)."""
     cfg, g = model.cfg, tp.group()
     x = hints.hint_batch(x)
+    v0, v1, split = (0, cfg.vocab_size, False) if g is None else tp.split(cfg.vocab_size, g)
     vocab = lambda leaf, dim: leaf if g is None else tp.take(
-        g, leaf, dim, [tp.split(cfg.vocab_size, g)[:2]], cfg.vocab_size)
+        g, leaf, dim, [(v0, v1)], cfg.vocab_size, split)
     with record_function("lm.logits"):
+        xf = x.float()
+        if split:
+            xf = tp.enter(g, xf)
         if cfg.tie_embeddings:
             with unit(model.embed):
-                out = L.unembed(vocab(model.embed.table, 0), x)
+                out = L.unembed(vocab(model.embed.table, 0), xf)
         else:
             with unit(model.head):
-                out = x.float() @ vocab(model.head.w, 1).float()
+                out = xf @ vocab(model.head.w, 1).float()
         return hints.hint_logits(out, cfg.vocab_size)
 
 
@@ -343,6 +360,27 @@ def forward_train(model: LMModel, inputs: torch.Tensor, remat: bool = False,
 _LOSS_ROWS = 1024      # rows of logits whose softmax temporaries exist at once
 
 
+def _row_lse(flat: torch.Tensor) -> torch.Tensor:
+    """logsumexp of each row of (N, V) logits, `_LOSS_ROWS` rows at a time."""
+    return torch.cat([torch.logsumexp(flat[i:i + _LOSS_ROWS], dim=-1)
+                      for i in range(0, flat.shape[0], _LOSS_ROWS)])
+
+
+def _xent_grad(logits: torch.Tensor, lab: torch.Tensor, lse: torch.Tensor, w: torch.Tensor,
+               at_label: torch.Tensor) -> torch.Tensor:
+    """The cross-entropy's gradient exp(logits - lse) * w, less `at_label` at
+    each row's label column, written `_LOSS_ROWS` rows at a time into one
+    buffer of the logits' shape."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    grad = torch.empty_like(flat)
+    for i in range(0, flat.shape[0], _LOSS_ROWS):
+        torch.mul(torch.exp(flat[i:i + _LOSS_ROWS] - lse[i:i + _LOSS_ROWS, None]), w,
+                  out=grad[i:i + _LOSS_ROWS])
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    grad[rows, lab[:, 0]] = grad[rows, lab[:, 0]] - at_label   # one label a row: no accumulation
+    return grad.reshape(logits.shape)
+
+
 class _MeanCrossEntropy(torch.autograd.Function):
     """mean(logsumexp(logits) - gold) over every (B, S) row.  The gold logit
     is taken with a gather: the reference's iota-mask sum adds zeros to that
@@ -354,8 +392,7 @@ class _MeanCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels):
         flat = logits.reshape(-1, logits.shape[-1])
-        lse = torch.cat([torch.logsumexp(flat[i:i + _LOSS_ROWS], dim=-1)
-                         for i in range(0, flat.shape[0], _LOSS_ROWS)])
+        lse = _row_lse(flat)
         lab = labels.reshape(-1, 1).long()
         gold = torch.gather(flat, 1, lab)[:, 0]
         ctx.save_for_backward(logits, lab, lse)
@@ -364,22 +401,53 @@ class _MeanCrossEntropy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         logits, lab, lse = ctx.saved_tensors
+        w = g / lab.shape[0]
+        return _xent_grad(logits, lab, lse, w, w), None
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """`_MeanCrossEntropy` of logits whose vocab is cut over the model axis
+    (each rank holds the columns [v0, v0 + V/m)).  Each rank's logsumexp
+    of its block is gathered over the axis (one float a row) and combined
+    as max + log(sum exp(lse_r - max)); the gold logit comes from the rank
+    whose block holds the label and is summed over the axis (one term other
+    than zero: exact).  The backward writes exp(block - lse) * w into the
+    block's one gradient buffer, less w at the label on its owner.  No
+    second tensor of the logits' size.  At one rank the combined lse is
+    lse + log(1): one device's bits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, g, v0):
         flat = logits.reshape(-1, logits.shape[-1])
-        w = g / flat.shape[0]
-        grad = torch.empty_like(flat)
-        for i in range(0, flat.shape[0], _LOSS_ROWS):
-            torch.mul(torch.exp(flat[i:i + _LOSS_ROWS] - lse[i:i + _LOSS_ROWS, None]), w,
-                      out=grad[i:i + _LOSS_ROWS])
-        rows = torch.arange(flat.shape[0], device=flat.device)
-        grad[rows, lab[:, 0]] = grad[rows, lab[:, 0]] - w    # one label a row: no accumulation
-        return grad.reshape(logits.shape), None
+        every = tp.gather(g, _row_lse(flat)[None], 0)                # (ranks, rows)
+        big = every.amax(dim=0)
+        lse = big + torch.log(torch.exp(every - big).sum(dim=0))
+        lab = labels.reshape(-1, 1).long() - v0
+        inside = (lab >= 0) & (lab < flat.shape[1])
+        lab = lab.clamp(0, flat.shape[1] - 1)
+        gold = tp.reduce(g, torch.where(inside, torch.gather(flat, 1, lab), 0.0)[:, 0])
+        ctx.save_for_backward(logits, lab, inside, lse)
+        return torch.mean(lse - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, inside, lse = ctx.saved_tensors
+        w = g / lab.shape[0]
+        return _xent_grad(logits, lab, lse, w, torch.where(inside[:, 0], w, 0.0)), \
+            None, None, None
 
 
 def loss_fn(model: LMModel, inputs: torch.Tensor, labels: torch.Tensor,
             remat: bool = False, unit: Unit = _no_unit) -> torch.Tensor:
-    """Mean next-token cross-entropy of `labels` (B, S) under the logits."""
+    """Mean next-token cross-entropy of `labels` (B, S) under the logits
+    (vocab-parallel where a tensor-parallel layout cuts the vocab)."""
     logits = forward_train(model, inputs, remat=remat, unit=unit)
+    g = tp.group()
     with record_function("lm.xent"):
+        if g is not None:
+            v0, _, split = tp.split(model.cfg.vocab_size, g)
+            if split:
+                return _VocabCrossEntropy.apply(logits, labels, g, v0)
         return _MeanCrossEntropy.apply(logits, labels)
 
 

@@ -51,8 +51,8 @@ def mlp_apply(p: SwiGLU, x: torch.Tensor, width: int) -> torch.Tensor:
         return swiglu(p, x)
     f0, f1, split = tp.split(width, g)
     cols = [(f0, f1)]
-    h = L.silu(x @ tp.take(g, p.wg, 1, cols, width).to(x.dtype)) \
-        * (x @ tp.take(g, p.wi, 1, cols, width).to(x.dtype))
+    h = L.silu(tp.column(g, x, tp.take(g, p.wg, 1, cols, width, split), split)) \
+        * tp.column(g, x, tp.take(g, p.wi, 1, cols, width, split), split)
     return tp.row(g, h, p.wo, cols, width, split)
 
 
@@ -121,21 +121,24 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         gate, expert, _ = route(p, x, cfg)
         dsp = dispatch(expert, e, cap)
 
+        grp = tp.group()
+        e0, e1, split = (0, e, False) if grp is None else tp.split(e, grp)
+        # The buffer is narrowed to the rank's experts: x's gradient through
+        # it is the rank's partial, summed over the model axis.
+        x_in = tp.enter(grp, x) if split else x
         rows = torch.arange(b, device=x.device)[:, None]
-        x_k = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
+        x_k = x_in[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
         hidden = torch.index_put(x.new_zeros((b, e * cap + 1, d)), (rows, dsp.slot), x_k)
         hidden = hidden[:, :e * cap].reshape(b, e, cap, d)             # (B, E, C, d)
         hidden = hints.hint_moe_buffer(hidden, e)
-        grp = tp.group()
         wi, wg, wo = p.wi, p.wg, p.wo
         if grp is not None:
-            e0, e1, split = tp.split(e, grp)
-            wi, wg, wo = (tp.take(grp, w, 0, [(e0, e1)], e) for w in (wi, wg, wo))
+            wi, wg, wo = (tp.take(grp, w, 0, [(e0, e1)], e, split) for w in (wi, wg, wo))
 
         g = L.silu(torch.einsum('becd,edf->becf', hidden, wg.to(x.dtype)))
         u = torch.einsum('becd,edf->becf', hidden, wi.to(x.dtype))
         y = hints.hint_moe_buffer(torch.einsum('becf,efd->becd', g * u, wo.to(x.dtype)), e)
-        if grp is not None and split:
+        if split:
             y = tp.gather(grp, y, 1)                                   # every expert's outputs
         y = y.reshape(b, e * cap, d)
 
@@ -153,7 +156,9 @@ def load_balancing_loss(router_probs: torch.Tensor, expert_idx: torch.Tensor,
     """Switch-style aux loss over (T, E) router probabilities and (T, k)
     choices: e * sum(mean probability x share of first choices).  Exposed
     for a training loop; `loss_fn` does not call it, as the reference's
-    does not."""
+    does not.  On a tensor-parallel layout every rank routes every token
+    with the whole router, so its inputs, and it, are whole on every rank
+    and its gradient needs no sum over the model axis."""
     me = router_probs.mean(dim=0)
     ce = torch.nn.functional.one_hot(expert_idx[:, 0], e).to(router_probs.dtype).mean(dim=0)
     return e * torch.sum(me * ce)

@@ -54,10 +54,16 @@ def get_unit() -> Optional[Callable]:
     return getattr(_state, "unit", None)
 
 
+def installed() -> tuple:
+    """(mesh, dp_over_model, unit) as installed on this thread: `layout`'s
+    arguments, to install the same on another thread."""
+    return get_mesh(), dp_over_model(), get_unit()
+
+
 @contextlib.contextmanager
 def layout(mesh, dp_over_model: bool = False, unit: Optional[Callable] = None):
     """`set_mesh` while the block runs, the previous layout restored after."""
-    saved = get_mesh(), getattr(_state, "dp", False), get_unit()
+    saved = installed()
     set_mesh(mesh, dp_over_model, unit)
     try:
         yield

@@ -545,3 +545,88 @@ def test_lm_serving_on_a_one_rank_nccl_layout(cuda_device, tmp_path):
             assert layout.counts()["model"]["reduce"]["calls"] > 0
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 1024, 896, 128), (2, 1024, 4864, 896)])
+def test_tp_row_and_column_backward_bits_on_card(cuda_device, tmp_path, shape):
+    """The tensor-parallel products of `models.tp` on a one-rank NCCL model
+    axis, in bf16: the row product (float32 partials summed, rounded once)
+    and the column product (its input gradient the float32-output GEMM,
+    summed, rounded once) give one device's x @ w forward and its
+    `MmBackward` gradients bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    from repro_torch.models import tp
+    b, t, k, n = shape
+    layout = mesh.make_host_mesh(1, 1, f"file://{tmp_path}/rendezvous", 0, cuda_device)
+    try:
+        g = layout.group(("model",))
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        x0 = torch.randn((b, t, k), generator=gen, device=cuda_device).bfloat16()
+        w0 = (torch.randn((k, n), generator=gen, device=cuda_device) / k ** 0.5).bfloat16()
+        cot = torch.randn((b, t, n), generator=gen, device=cuda_device).bfloat16()
+        for name, fn in (("row", lambda x, w: tp.row(g, x, w, [(0, k)], k, True)),
+                         ("column", lambda x, w: tp.column(g, x, w, True))):
+            outs = []
+            for f in (fn, lambda x, w: x @ w):
+                x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+                y = f(x, w)
+                outs.append((y.detach(),) + torch.autograd.grad(y, (x, w), cot))
+            for i, (a, c) in enumerate(zip(*outs)):
+                assert torch.equal(a.view(torch.int16), c.view(torch.int16)), (name, i)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "deepseek-v2-lite-16b", "zamba2-7b"])
+def test_lm_tp_step_on_a_one_rank_nccl_layout_equals_single_device(cuda_device, tmp_path,
+                                                                     name):
+    """The tensor-parallel step (`make_train_step(mesh=, dp_over_model=False)`)
+    on a 1 x 1 NCCL layout against the single-device step, two steps of the
+    reduced config in bf16 from one state and batch: equal bits in the
+    loss, the grad norm, every gradient leaf and every leaf of params, mu,
+    nu and master; the sums over the model axis ran through NCCL."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg, opt_cfg = _train_cfg(name), adamw.OptConfig(warmup_steps=2, total_steps=10)
+    taps, update = [], adamw.update
+
+    def tapped(grads, *args, **kwargs):
+        taps.append({k: v.clone() for k, v in grads.items()})
+        return update(grads, *args, **kwargs)
+
+    layout = mesh.make_host_mesh(1, 1, f"file://{tmp_path}/rendezvous", 0, cuda_device)
+    try:
+        layout = layout.counting()
+        model = M.init_params(cfg, 0, cuda_device)
+        start = steps.clone_state(steps.init_train_state(model, opt_cfg))
+        single = steps.make_train_step(cfg, opt_cfg)
+        tp_step = steps.make_train_step(cfg, opt_cfg, mesh=layout, dp_over_model=False)
+        st, mst = steps.bind(model, steps.clone_state(start)), steps.shard_state(layout, start)
+        skeleton = M.LMModel(cfg, None, "meta")
+        adamw.update = tapped
+        for i in range(2):
+            batch = make_batch(cfg, DataConfig(seed=2), i, 4, 64, cuda_device)
+            st, ms = single(model, st, batch)
+            layout.reset_counts()
+            mst, mm = tp_step(skeleton, mst, steps.shard_batch(layout, batch))
+            for k in ("loss", "grad_norm", "lr"):
+                assert torch.equal(ms[k], mm[k]), (i, k)
+            want, got = taps[-2:]
+            for k, g in want.items():
+                assert torch.equal(g.view(torch.uint8), got[k].view(torch.uint8)), (i, k)
+            assert layout.counts()["model"]["grad_sum"]["calls"] > 0
+        for part in ("params", "mu", "nu", "master"):
+            a = st.params if part == "params" else getattr(st.opt, part)
+            b = mst.params if part == "params" else getattr(mst.opt, part)
+            for k in a:
+                assert torch.equal(a[k].detach().view(torch.uint8),
+                                   b[k].detach().view(torch.uint8)), (part, k)
+    finally:
+        adamw.update = update
+        dist.destroy_process_group()

@@ -417,8 +417,18 @@ def test_one_rank_fsdp_step_equals_single_device_bitwise(one_rank, arch):
 
 
 def test_tensor_parallel_posture_raises_at_model_above_one():
+    """Both postures at model > 1 (the tensor-parallel one no longer raises):
+    at 2 x 2 the default plans the two-cut posture, `rules.param_spec`'s
+    blocks with the gradient never summed over model; the DP posture plans
+    one fsdp cut and sums over model."""
     cfg, opt = configs.get("qwen2-0.5b").reduced(), adamw.OptConfig()
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        steps.make_train_step(cfg, opt, mesh=mesh.shape_layout((2, 2)))
-    steps.make_train_step(cfg, opt, mesh=mesh.shape_layout((2, 2)), dp_over_model=True)
+    tp_step = steps.make_train_step(cfg, opt, mesh=mesh.shape_layout((2, 2)))
+    assert tp_step.tp and tp_step.blocks == 2
+    wq = tp_step.plan["layers.0.attn.wq"]
+    assert (wq.dim, wq.axes, wq.model_dim, wq.rest) == (0, ("data",), 1, ())
+    assert all("model" not in lf.rest for lf in tp_step.plan.values())
+    dp = steps.make_train_step(cfg, opt, mesh=mesh.shape_layout((2, 2)), dp_over_model=True)
+    assert not dp.tp and dp.blocks == 4
+    assert dp.plan["layers.0.attn.wq"].model_dim is None
+    assert dp.plan["layers.0.attn.wq"].rest == ("model",)
     steps.make_train_step(cfg, opt, mesh=mesh.shape_layout((4, 1)))     # model == 1: both run

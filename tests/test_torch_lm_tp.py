@@ -20,7 +20,8 @@ layout against one device.
    the census of each step as the design predicts (every collective of the
    tensor-parallel code runs as a copy: no shortcut at one rank), and the
    held bytes; a cache not made on the layout and weights that are a block
-   of neither posture are refused; tensor-parallel training still raises.
+   of neither posture are refused; a tensor-parallel train step runs and
+   restores the layout.
 """
 import dataclasses
 
@@ -165,11 +166,11 @@ def test_gathered_leaves_at_production_layouts(sizes, monkeypatch):
     names, gathered, posture = {}, {}, {}
     take, bound = tp.take, steps._bound
 
-    def recording_take(g, leaf, dim, ranges, n):
+    def recording_take(g, leaf, dim, ranges, n, part=False):
         if leaf.shape[dim] != n and list(ranges) != [(g.rank * leaf.shape[dim],
                                                       (g.rank + 1) * leaf.shape[dim])]:
             gathered[arch].add(short(names[id(leaf)]))
-        return take(g, leaf, dim, ranges, n)
+        return take(g, leaf, dim, ranges, n, part)
 
     def recording_bound(slots, tensors):
         names.update({id(t): k for k, t in tensors.items()})
@@ -248,7 +249,18 @@ def test_layout_refuses_what_it_cannot_place(one_rank):
     assert hints.get_mesh() is None                      # the step restored the layout
 
 
-def test_tensor_parallel_training_still_raises():
+def test_tensor_parallel_training_still_raises(one_rank):
+    """Tensor-parallel training no longer raises: a step of the posture on
+    the one-rank layout runs, gives a finite loss and grad norm, and leaves
+    the layout it found installed (none) after it."""
     cfg, opt = configs.get("qwen2-0.5b").reduced(), adamw.OptConfig()
-    with pytest.raises(NotImplementedError, match="serving over it is make_prefill_step"):
-        steps.make_train_step(cfg, opt, mesh=mesh.shape_layout((2, 2)))
+    L.ACT_DTYPE = torch.float32
+    model = M.init_params(cfg, 0, "cpu").float()
+    state = steps.shard_state(one_rank, steps.init_train_state(model, opt))
+    step = steps.make_train_step(cfg, opt, mesh=one_rank, dp_over_model=False)
+    batch = {"inputs": torch.zeros((2, 8), dtype=torch.int32),
+             "labels": torch.ones((2, 8), dtype=torch.int32)}
+    assert hints.get_mesh() is None
+    state, metrics = step(M.LMModel(cfg, None, "meta"), state, steps.shard_batch(one_rank, batch))
+    assert hints.get_mesh() is None and int(state.step) == 1
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
