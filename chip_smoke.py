@@ -187,6 +187,20 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              cut as phase 17 (b), one step each at 2 x 1024 against one
              device's: equal bits.  At one rank every collective runs as a
              copy; the tensor-parallel math at p > 1 is the CPU tests'.
+21. dryrun — the dry run (`launch/dryrun.py`: a step traced on meta
+             tensors on the host, as one rank of a layout of any size runs
+             it, with nothing computed on any device) of the cells phases
+             18-20 just ran on the card, held against what they measured:
+             (a) qwen2-0.5b at 4 x 4096 with remat on a 1 x 1 layout in
+             both postures: the census equals phase 18's (DP over model) and
+             phase 20's (tensor parallel) call for call and byte for byte,
+             and the predicted peak (the rank's arguments plus the peak of
+             the step's own storages) is within DRYRUN_PEAK_TOL of each
+             phase's max_memory_allocated; (b) deepseek-v2-lite-16b's
+             served prefill (8 x 1024 into caches of 1088) and one decode
+             step on 1 x 1: the census equals phase 19's; (c) two rows of
+             the reference's production sweep at 16 x 16, printed whole:
+             qwen2-0.5b train_4k and deepseek-v2-lite-16b decode_32k.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
 card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
@@ -194,8 +208,8 @@ m2m, probes, serve) zeroes the launch counts just before it and reads them
 just after; dist and sweep2d do so around each distributed engine run (and
 dist around each emulated per-rank descent), so the single-device runs they
 compare with are not counted; lm, train and lm_mesh zero them before their
-runs and require them still 0 after, as lm_serve_mesh and lm_tp_train
-do.  lm serves under the port's own `torch.inference_mode()`, so its peak
+runs and require them still 0 after, as lm_serve_mesh, lm_tp_train and
+dryrun do.  lm serves under the port's own `torch.inference_mode()`, so its peak
 memory shows that serving builds no graph; only its `forward_train`
 reference passes run under `torch.no_grad()`.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
@@ -3457,6 +3471,83 @@ def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_TOL = 0.05         # predicted peak against max_memory_allocated
+DRYRUN_ROWS = (("qwen2-0.5b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"))
+
+
+def phase_dryrun(mesh_run: dict, serve_run: dict, tp_run: dict, card: str) -> dict:
+    """21. dryrun: the dry run (`launch/dryrun.trace_cell`, meta tensors on
+    the host, a layout of `MetaGroup`s) of the steps phases 18, 19 and 20
+    ran on the card, against what they measured there; then two production
+    rows (`dryrun.run_cell`) at 16 x 16.  It launches no kernel and puts
+    nothing on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    ops.reset_launches()
+    out = dict(card=card, train={}, serve={}, rows={})
+    cfg, opt_cfg = configs.get(TRAIN_ARCH), adamw.OptConfig(**TRAIN_OPT)
+    train = ShapeConfig("phase18_20", TRAIN_S, TRAIN_B, "train")
+    for posture, dp, census, peak in (
+            ("dp_over_model", True, compact_counts(mesh_run["census_one_step"]),
+             mesh_run["mesh_peak_gib"]),
+            ("tensor_parallel", False, tp_run["census_one_step"], tp_run["tp_peak_gib"])):
+        row = dryrun.trace_cell(cfg, train, (1, 1), dp, opt_cfg=opt_cfg)
+        got = compact_counts(row["collectives"]["groups"])
+        if got != census:
+            raise AssertionError(f"dryrun (a) {posture}: the traced census {got} is not the "
+                                 f"card's {census}")
+        mem = row["mem_per_device"]
+        predicted = (mem["argument_size"] + mem["temp_size"]) / 2**30
+        off = predicted / peak - 1
+        if abs(off) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dryrun (a) {posture}: predicted peak {predicted:.3f} GiB is "
+                                 f"{off:+.2%} off the card's {peak:.3f} GiB")
+        out["train"][posture] = dict(trace_s=row["lower_s"], census_equal=True,
+                                     predicted_peak_gib=predicted, card_peak_gib=peak,
+                                     peak_off=off, mem_per_device=mem, flops=row["flops"],
+                                     collectives={k: row["collectives"][k]
+                                                  for k in dryrun.COLLECTIVES})
+        log(f"[dryrun] (a) {cfg.name} {TRAIN_B} x {TRAIN_S} remat, 1 x 1, {posture}: census "
+            f"equal to the card's ({sum(c['calls'] for g in got.values() for c in g.values())} "
+            f"calls); predicted peak {predicted:.3f} GiB (arguments "
+            f"{mem['argument_size'] / 2**30:.3f} + step {mem['temp_size'] / 2**30:.3f}) against "
+            f"{peak:.3f} GiB measured ({off:+.2%}); {row['flops']:.4g} FLOPs; traced in "
+            f"{row['lower_s']} s")
+    served = configs.get(LM_SERVED)
+    for phase, shape, cache_len in (
+            ("prefill", ShapeConfig("phase19_prefill", LM_PROMPT, LM_BATCH, "prefill"),
+             LM_PROMPT + LM_NEW),
+            ("decode", ShapeConfig("phase19_decode", LM_PROMPT + LM_NEW, LM_BATCH, "decode"),
+             None)):
+        row = dryrun.trace_cell(served, shape, (1, 1), cache_len=cache_len)
+        got, want = compact_counts(row["collectives"]["groups"]), serve_run["census"][phase]
+        if got != want:
+            raise AssertionError(f"dryrun (b) {phase}: the traced census {got} is not the "
+                                 f"card's {want}")
+        out["serve"][phase] = dict(trace_s=row["lower_s"], census_equal=True,
+                                   mem_per_device=row["mem_per_device"], flops=row["flops"])
+        log(f"[dryrun] (b) {served.name} {phase} ({LM_BATCH} x {shape.seq_len}), 1 x 1: census "
+            f"equal to the card's {json.dumps(want)}; traced in {row['lower_s']} s")
+    for arch, shape_name in DRYRUN_ROWS:
+        row = dryrun.run_cell(arch, shape_name, False)
+        if row["status"] != "OK":
+            raise AssertionError(f"dryrun (c) {arch} {shape_name}: {row}")
+        out["rows"][f"{arch}|{shape_name}|16x16"] = row
+        log(f"[dryrun] (c) row {arch}|{shape_name}|16x16: {json.dumps(row)}")
+    if any(ops.launches.values()):
+        raise AssertionError(f"dryrun: the dry run launched {ops.launches}")
+    out["launches"] = dict(ops.launches)
+    log(f"[dryrun] kernel launches {out['launches']} ({card})")
+    return out
+
+
 def check_same_state(tag: str, a, b) -> None:
     for part in ("neurons", "edges"):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part), getattr(b, part)):
@@ -3468,7 +3559,7 @@ def check_same_state(tag: str, a, b) -> None:
 
 PHASES = ("build", "kernels", "small", "main", "fig1", "bh", "direct", "field", "fig5",
           "sweep", "m2m", "probes", "serve", "dist", "sweep2d", "lm", "train", "lm_mesh",
-          "lm_serve_mesh", "lm_tp_train")
+          "lm_serve_mesh", "lm_tp_train", "dryrun")
 
 
 def main() -> int:
@@ -3532,6 +3623,9 @@ def main() -> int:
             run[name] = phase_lm_serve_mesh(args.seed, run["lm"], card)
         elif name == "lm_tp_train":
             run[name] = phase_lm_tp_train(args.seed, run["lm_mesh"], card)
+        elif name == "dryrun":
+            run[name] = phase_dryrun(run["lm_mesh"], run["lm_serve_mesh"], run["lm_tp_train"],
+                                     card)
         torch.cuda.empty_cache()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")

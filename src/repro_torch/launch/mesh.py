@@ -30,7 +30,11 @@ reference's 16 x 16 or 2 x 16 x 16 layout seen from one rank, of
 are processes.  `CountingGroup` records the calls and bytes of each
 collective (the census, the tests and chip_smoke.py read it).
 `ShapeGroup` knows its size only, for the static counters of a layout with
-more ranks than there are processes.
+more ranks than there are processes.  `MetaGroup` moves shapes: each
+collective answers a meta tensor with a new meta tensor of the result's
+shape and dtype, so a step runs whole on meta tensors as one rank of a
+layout of any size sees it (`meta_layout`, the dry run of
+`launch/dryrun.py`).
 """
 from __future__ import annotations
 
@@ -146,6 +150,49 @@ class ShapeGroup:
 
     gather = merge = reduce = grad_sum = scatter_sum = all_to_all = gather_objects = _none
     gather_to_host = _none
+
+
+class MetaGroup:
+    """A group of `size` ranks seen from `rank` whose collectives move shapes
+    only: each takes a meta tensor and returns a new meta tensor of the
+    shape and dtype the real collective's result has (no storage, no
+    value).  The host-object collectives raise: a dry run has no objects to
+    gather."""
+
+    def __init__(self, size: int, rank: int = 0, name: str = DATA):
+        self.size, self.rank, self.name = int(size), int(rank), name
+        self.device = torch.device("meta")
+
+    def _meta(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "meta":
+            raise ValueError(f"MetaGroup {self.name}: a collective of a tensor on {x.device}; "
+                             f"a meta layout moves meta tensors only")
+        return x
+
+    def gather(self, x):
+        x = self._meta(x)
+        return x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+
+    def merge(self, x):
+        return torch.empty_like(self._meta(x))
+
+    def reduce(self, x):
+        return self._meta(x).new_empty(x.shape, dtype=torch.float32)
+
+    def grad_sum(self, x):
+        return self.reduce(x)
+
+    def scatter_sum(self, x):
+        return self._meta(x).new_empty(tuple(x.shape[1:]))
+
+    def all_to_all(self, x):
+        return torch.empty_like(self._meta(x))
+
+    def gather_objects(self, obj):
+        raise RuntimeError("MetaGroup gathers no host objects")
+
+    def gather_to_host(self, parts, dst=0):
+        raise RuntimeError("MetaGroup gathers nothing to a host")
 
 
 class CountingGroup:
@@ -366,6 +413,15 @@ def shape_layout(sizes: Sequence[int], rank: int = 0) -> LMGroups:
         index, size = block_of(over, coords)
         groups[over] = ShapeGroup(size, index, name="+".join(over))
     return LMGroups(axes, sizes, rank, groups)
+
+
+def meta_layout(sizes: Sequence[int], rank: int = 0) -> LMGroups:
+    """`shape_layout(sizes, rank)` with every group a `MetaGroup` (of the
+    same size, rank and name) and the layout's device meta: the layout a
+    dry run traces a step on."""
+    lay = shape_layout(sizes, rank)
+    return LMGroups(lay.axes, lay.sizes, lay.rank, {
+        k: MetaGroup(g.size, g.rank, g.name) for k, g in lay.groups.items()})
 
 
 def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> LMGroups:

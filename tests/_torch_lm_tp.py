@@ -9,10 +9,11 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.launch import lm_serve, mesh, steps
+from repro_torch.launch import dryrun, lm_serve, mesh, steps
 from repro_torch.launch.distributed import held_bytes
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models.config import ShapeConfig
 from repro_torch.sharding import rules
 
 ARCHS = sorted(configs.ARCHS)
@@ -292,3 +293,26 @@ def check_census(res: dict, cfg, sizes, case: Case) -> None:
         assert all(c["calls"] == 0 for grp, cs in counts.items() if grp not in want
                    for c in cs.values()), (case.name, phase, counts)
         assert counts["model"]["merge"]["calls"] == counts["model"]["scatter_sum"]["calls"] == 0
+
+
+def meta_census(cfg, sizes, kind: str, batch: int, seq: int, dp_over_model: bool = False,
+                cache_len=None, budget: float = 10e9) -> dict:
+    """The census by group (`LMGroups.counts()`) of one step of `kind` at
+    rank 0 of a layout of `sizes`, traced on meta tensors by the dry run
+    (`launch.dryrun.trace_cell`) in float32, as the gloo jobs run it:
+    `batch` rows of `seq` tokens (decode: caches of `seq` positions)."""
+    row = dryrun.trace_cell(cfg, ShapeConfig(kind, seq, batch, kind), sizes, dp_over_model,
+                            cache_len=cache_len, budget=budget, dtype=torch.float32)
+    return row["collectives"]["groups"]
+
+
+def check_meta_census(res: dict, cfg, sizes, case: Case) -> None:
+    """Each step's census on the layout (rank 0's) equals the dry run's."""
+    for phase, counts in res["census"].items():
+        if phase == "decode":
+            want = meta_census(cfg, sizes, "decode", case.batch, case.max_seq,
+                               budget=case.budget)
+        else:
+            want = meta_census(cfg, sizes, "prefill", case.batch, PROMPT,
+                               cache_len=case.max_seq, budget=case.budget)
+        assert counts == want, (case.name, phase, counts, want)

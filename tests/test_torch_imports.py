@@ -43,7 +43,7 @@ def test_scan_covers_the_package():
             "llama4_maverick_400b_a17b.py", "chameleon_34b.py", "yi_6b.py", "qwen2_0_5b.py",
             "qwen3_8b.py", "internlm2_1_8b.py", "zamba2_7b.py", "hubert_xlarge.py",
             "mamba2_1_3b.py", "convert.py", "adamw.py", "pipeline.py", "failures.py",
-            "lm_train.py", "hints.py", "tp.py"} <= names
+            "lm_train.py", "hints.py", "tp.py", "dryrun.py"} <= names
     assert {"audit", "launch", "sharding", "serve", "core", "kernels", "checkpoint", "models",
             "configs", "optim", "data", "runtime"} <= {p.parent.name for p in PORT_FILES}
 

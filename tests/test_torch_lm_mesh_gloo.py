@@ -14,7 +14,9 @@ posture: the batch over all four ranks, weights cut over data) and a
    master equal the spec arithmetic (and no block is a view into a larger
    storage); the census of one step is one gather a unit in the forward
    and one a unit in remat's recomputation, with the bytes the specs give
-   those units, and no gather larger than the largest unit.
+   those units, and no gather larger than the largest unit; every group's
+   census equals the dry run's trace of the step on meta tensors
+   (`launch.dryrun.trace_cell`), call for call and byte for byte.
 3. `reshard` of a host tree (bf16 state) onto 2 x 2, then
    `sharding.rules.gather_tree_to_host`, gives back the same bits, and the
    blocks' bytes are `steps.state_bytes_per_rank`'s.
@@ -46,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_lm_tp import meta_census
 from repro_torch import configs, convert
 from repro_torch.checkpoint.manager import restore_pytree, save_pytree
 from repro_torch.data.pipeline import DataConfig, make_batch
@@ -459,6 +462,16 @@ def test_census_one_gather_per_unit(runs, layout, arch):
         assert all(o["gather"]["calls"] == 0 for o in others)
         world = step["counts"]["data+model"]
         assert world["merge"]["calls"] >= 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_census_equals_the_dry_run(runs, layout, arch):
+    """Every group's census, call for call and byte for byte, as the dry run
+    traces the same DP-over-model step on meta tensors."""
+    want = meta_census(reduced(arch), LAYOUTS[layout], "train", B, S, dp_over_model=True)
+    for step in runs["results"][(layout, arch)]["steps"]:
+        assert step["counts"] == want, (layout, arch)
 
 
 def test_reshard_round_trip_same_bits(runs):

@@ -8,8 +8,8 @@ layout against one device.
    `hint_moe_buffer` give the rank's block of a whole value, pass a block
    through and refuse anything else; `layout` restores the previous one.
 2. The gathered leaves at 16 x 16 and 2 x 16 x 16 (rank 0 of
-   `shape_layout`, every group's collectives answered with meta tensors of
-   the right shapes): a prefill and a decode step of all ten configs at
+   `mesh.meta_layout`, every group's collectives answered with meta tensors
+   of the right shapes): a prefill and a decode step of all ten configs at
    full width, depth cut to one layer of each kind, on meta tensors, and
    the weights each layer gathers over the model axis recorded.  They are
    exactly the leaves whose cut falls inside a head or across a
@@ -76,30 +76,6 @@ def test_anchors_cut_a_whole_value_to_the_rank_block():
 # 2. The gathered leaves at the production layouts
 # ---------------------------------------------------------------------------
 
-class MetaGroup:
-    """A group of `size` ranks seen from `rank` whose collectives return meta
-    tensors of the shapes the real ones would."""
-
-    def __init__(self, size, rank, name):
-        self.size, self.rank, self.name = size, rank, name
-        self.device = torch.device("meta")
-
-    def gather(self, x):
-        return x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
-
-    def reduce(self, x):
-        return torch.empty(x.shape, dtype=torch.float32, device="meta")
-
-    def all_to_all(self, x):
-        return torch.empty_like(x)
-
-
-def meta_layout(sizes):
-    lay = mesh.shape_layout(sizes)
-    return mesh.LMGroups(lay.axes, lay.sizes, 0, {
-        k: MetaGroup(g.size, g.rank, g.name) for k, g in lay.groups.items()})
-
-
 DEPTH = {"deepseek-v2-lite-16b": 2, "llama4-maverick-400b-a17b": 2, "zamba2-7b": 6}
 
 # Per config, the leaves (name less its stack and index) whose blocks a
@@ -161,7 +137,7 @@ def short(name):
 
 @pytest.mark.parametrize("sizes", [(16, 16), (2, 16, 16)], ids=["16x16", "2x16x16"])
 def test_gathered_leaves_at_production_layouts(sizes, monkeypatch):
-    lay = meta_layout(sizes)
+    lay = mesh.meta_layout(sizes)
     batch = 32 if len(sizes) == 3 else 16                  # a row a rank of the fsdp axes
     names, gathered, posture = {}, {}, {}
     take, bound = tp.take, steps._bound

@@ -15,7 +15,9 @@ steps from the same weights and tokens.
    `param_shardings(serve=True)` (both postures) and the caches' by
    `cache_shardings`.
 3. The census of a prefill and of a decode step, call for call, as the
-   design predicts from the config (`_torch_lm_tp.predicted`).
+   design predicts from the config (`_torch_lm_tp.predicted`), and, call
+   for call and byte for byte, as the dry run traces the same steps on
+   meta tensors (`launch.dryrun.trace_cell`).
 4. `lm_serve.generate(mesh=)`, greedy and sampled, gives one device's
    tokens.
 
@@ -26,8 +28,8 @@ import math
 import pytest
 import torch
 
-from _torch_lm_tp import (ARCHS, Case, GenerateJob, ServeJob, check_case, check_census, config,
-                          held_caches, held_params, single_device)
+from _torch_lm_tp import (ARCHS, Case, GenerateJob, ServeJob, check_case, check_census,
+                          check_meta_census, config, held_caches, held_params, single_device)
 from repro_torch.launch import lm_serve, steps
 from repro_torch.launch.distributed import run_ranks
 from repro_torch.models import layers as L
@@ -70,6 +72,11 @@ def test_held_bytes_equal_spec_arithmetic(runs, case):
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
 def test_census_as_designed(runs, case):
     check_census(runs["serve"][case], config(case.arch), SIZES, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
+def test_census_equals_the_dry_run(runs, case):
+    check_meta_census(runs["serve"][case], config(case.arch), SIZES, case)
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])

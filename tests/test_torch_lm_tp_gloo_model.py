@@ -15,8 +15,8 @@ import math
 
 import pytest
 
-from _torch_lm_tp import (ARCHS, Case, ServeJob, check_case, check_census, config, held_caches,
-                          held_params, single_device)
+from _torch_lm_tp import (ARCHS, Case, ServeJob, check_case, check_census, check_meta_census,
+                          config, held_caches, held_params, single_device)
 from repro_torch.launch.distributed import run_ranks
 from repro_torch.models import layers as L
 
@@ -60,3 +60,9 @@ def test_held_bytes_and_census(runs, layout, case):
         want = held_caches(cfg, sizes, r, case.batch, case.max_seq)
         assert h["tensors"] == want and h["storages"] == want, (r, h, want)
     check_census(res, cfg, sizes, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_census_equals_the_dry_run(runs, layout, case):
+    check_meta_census(runs[layout][case], config(case.arch), LAYOUTS[layout], case)

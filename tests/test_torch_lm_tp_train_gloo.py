@@ -17,7 +17,9 @@ blocks, cut over data on one dim and over model on another.
 3. The census of one step: over the model axis, call for call, what the
    config's shapes give (`_torch_lm_tp_train.predicted`); over the data
    axis, one gather a unit in the forward and one a layer unit in remat's
-   recomputation, of the bytes the specs give those units' blocks.
+   recomputation, of the bytes the specs give those units' blocks; and
+   every group's, call for call and byte for byte, as the dry run traces
+   the same step on meta tensors (`launch.dryrun.trace_cell`).
 4. `reshard` of a bf16 host tree onto 2 x 2 by the tensor-parallel specs
    (blocks cut two ways) and onto 2 x 1, then `gather_tree_to_host`, gives
    back the same bits.
@@ -33,6 +35,7 @@ import math
 
 import pytest
 
+from _torch_lm_tp import meta_census
 from _torch_lm_tp_train import (ARCHS, RoundTripJob, TPJob, config, predicted, refs_of,
                                 single_device)
 from repro_torch.launch import mesh, steps
@@ -40,7 +43,7 @@ from repro_torch.launch.distributed import run_ranks
 from repro_torch.models import layers as L
 from repro_torch.runtime import failures
 from repro_torch.sharding import rules
-from test_torch_lm_mesh_gloo import OPT, STEPS, check_state, check_step, units
+from test_torch_lm_mesh_gloo import B, OPT, S, STEPS, check_state, check_step, units
 
 SIZES = (2, 2)
 
@@ -124,6 +127,13 @@ def test_census_as_the_shapes_give_it(runs, arch):
         assert data["gather"]["bytes"] == sum(tp_unit_bytes(cfg, u) for u in forward + recompute)
         assert data["scatter_sum"]["calls"] >= len(forward)
         assert step["counts"]["data+model"]["merge"]["calls"] == 1     # the loss and the norm
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_census_equals_the_dry_run(runs, arch):
+    want = meta_census(config(arch), SIZES, "train", B, S)
+    for step in runs["results"][arch]["steps"]:
+        assert step["counts"] == want, arch
 
 
 def test_reshard_round_trip_same_bits(runs):

@@ -19,8 +19,9 @@ factor of the axis's size:
 
 Per config and layout, two steps: the loss, the grad norm, every gradient
 leaf and the state after each step (`check_state(count=)`), the bytes each
-rank holds, and the census over the model axis call for call as the
-shapes give it.  The two layouts run at once, each `run_ranks` call with a
+rank holds, the census over the model axis call for call as the
+shapes give it, and every group's call for call and byte for byte as the
+dry run traces the step on meta tensors (`launch.dryrun.trace_cell`).  The two layouts run at once, each `run_ranks` call with a
 120 s limit and a 60 s collective timeout.
 """
 import concurrent.futures
@@ -28,10 +29,11 @@ import math
 
 import pytest
 
+from _torch_lm_tp import meta_census
 from _torch_lm_tp_train import ARCHS, VARIANTS, TPJob, config, held_state, predicted, refs_of
 from repro_torch.launch.distributed import run_ranks
 from repro_torch.models import layers as L
-from test_torch_lm_mesh_gloo import STEPS, check_state, check_step
+from test_torch_lm_mesh_gloo import B, S, STEPS, check_state, check_step
 
 LAYOUTS = {"1x2": (1, 2), "1x4": (1, 4)}
 NAMES = ARCHS + list(VARIANTS)
@@ -73,3 +75,11 @@ def test_held_bytes_and_census(runs, layout, name):
         model = {k: step["counts"]["model"][k]["calls"]
                  for k in ("gather", "reduce", "grad_sum", "scatter_sum")}
         assert model == predicted(cfg, sizes), (name, model)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_census_equals_the_dry_run(runs, layout, name):
+    want = meta_census(config(name), LAYOUTS[layout], "train", B, S)
+    for step in runs["results"][layout][name]["steps"]:
+        assert step["counts"] == want, (layout, name)
