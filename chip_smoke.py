@@ -25,11 +25,14 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              (positions U(0, 2190 um)^3, about 1e5 neurons/mm^3), paper
              FMMConfig (c1 = c2 = 70, sigma = 750), calibrated MSP at
              speedup 100, from a seeded mid-growth state, 300 steps (three
-             connectivity updates); run twice, the edge tables must match;
+             connectivity updates); run twice, the edge tables must match,
+             the second time under a `Census` (below): launches and the
+             pairs each tier of Alg. 2 evaluated and used;
 5. fig1    — n = 4096, 3000 steps, c1 = c2 = 8 from a cold start: mean
              calcium rises toward eps = 0.7 and synapses form;
 6. bh      — the main configuration with method="barnes_hut", 300 steps:
-             the paper's comparison, its times beside phase 4's;
+             the paper's comparison, its times beside phase 4's; run twice
+             as phase 4, the second time under a `Census`;
 7. direct  — method="direct" at n = 16384 in U(0, 547.5 um)^3 (the main
              configuration's density), 300 steps;
 8. field   — the exact attraction `direct.attraction` of all 2^20 neurons
@@ -203,13 +206,16 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              qwen2-0.5b train_4k and deepseek-v2-lite-16b decode_32k.
 
 Phase 3 also runs the K = 4 ensemble and the m2m FMM at N = 256 on the
-card and the CPU.  Each path phase (main, bh, direct, field, fig5, sweep,
-m2m, probes, serve) zeroes the launch counts just before it and reads them
-just after; dist and sweep2d do so around each distributed engine run (and
-dist around each emulated per-rank descent), so the single-device runs they
-compare with are not counted; lm, train and lm_mesh zero them before their
-runs and require them still 0 after, as lm_serve_mesh, lm_tp_train and
-dryrun do.  lm serves under the port's own `torch.inference_mode()`, so its peak
+card and the CPU.  The launch counts are the port's counters
+(`repro_torch.trace`), which count only while a profiler records: a
+`Census` block runs its work under torch.profiler on the host and reads
+them after, and its host time runs a little longer for it.  Each path
+phase (main's and bh's repeat runs, direct, field, fig5, sweep, m2m,
+probes, serve) runs a `Census` around its run; dist and sweep2d around
+each distributed engine run (and dist around each emulated per-rank
+descent), so the single-device runs they compare with are not counted;
+lm, train and lm_mesh open one before their runs and require no launch in
+it, as lm_serve_mesh, lm_tp_train and dryrun do.  lm serves under the port's own `torch.inference_mode()`, so its peak
 memory shows that serving builds no graph; only its `forward_train`
 reference passes run under `torch.no_grad()`.  The script prints the card's
 `nvidia-smi` name and power limit, a `{"kernels": ...}` line, and as its
@@ -520,34 +526,65 @@ def check_run(tag: str, st, syn: np.ndarray, interval: int, launches: dict,
             raise AssertionError(f"{tag}: non-finite {f}")
 
 
-def count_tiers(cfg, counts: dict):
-    """A wrapper of traversal._tier_log_masses that tallies which tier each
-    (source box, target child) pair takes; used on the repeat run only."""
-    from repro_torch.core import traversal
-    inner = traversal._tier_log_masses
+KERNELS = ("msp_update", "m2l_separable", "gaussian_nbody")
+_CENSUSES = []          # the census blocks running, innermost last
 
-    def wrapped(child_ax_w, child_ax_c, child_gc, child_moms, tgt_den_w, tgt_den_c,
-                tgt_gc, tgt_herm, cfg_, valid):
-        pairs = tgt_den_w.numel()
-        if valid:
-            heavy_den = tgt_den_w > cfg.c1
-            herm = int((heavy_den & (child_ax_w > cfg.c2)[:, None]).sum())
-            tay = int(heavy_den.sum()) - herm
-        else:
-            herm = tay = 0
-        counts["hermite"] += herm
-        counts["taylor"] += tay
-        counts["direct"] += pairs - herm - tay
-        return inner(child_ax_w, child_ax_c, child_gc, child_moms, tgt_den_w, tgt_den_c,
-                     tgt_gc, tgt_herm, cfg_, valid)
-    return traversal, inner, wrapped
+
+class Census:
+    """The port's counters (`repro_torch.trace`) over a block, run under
+    torch.profiler on the host alone, the counters' switch:
+
+        with Census() as c:
+            run()
+        c.counts      every counter by name
+        c.launches    {kernel: its CUDA launches}
+
+    or `c = Census().open()` ... `c.close()` around a long phase.  The
+    profiler records every operator on the host, so the block's host time
+    runs a little longer than it would without it.  `profile_window` inside
+    a block pauses the block's profiler and counts under its own."""
+
+    def open(self) -> "Census":
+        from repro_torch import trace
+        trace.reset()
+        self._start()
+        _CENSUSES.append(self)
+        return self
+
+    def close(self) -> None:
+        from repro_torch import trace
+        _CENSUSES.remove(self)
+        self._stop()
+        self.counts = trace.counts()
+        self.launches = {k: self.counts.get(f"kernels.{k}.launches", 0) for k in KERNELS}
+
+    def __enter__(self):
+        return self.open()
+
+    def _start(self):
+        from torch.profiler import ProfilerActivity, profile
+        self._prof = profile(activities=[ProfilerActivity.CPU])
+        self._prof.__enter__()
+
+    def _stop(self):
+        self._prof.__exit__(None, None, None)
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def tier_census(counts: dict) -> dict:
+    """{tier: {"evaluated": pairs, "used": pairs}} of the descent's tiers
+    (Alg. 2) from a census's counts."""
+    return {t: {w: counts.get(f"search.pairs.{t}.{w}", 0) for w in ("evaluated", "used")}
+            for t in ("direct", "hermite", "taylor")}
 
 
 def phase_main(seed: int) -> dict:
     from repro_torch.core.engine import EngineConfig, PlasticityEngine
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     n, domain, steps = MAIN_N, MAIN_DOMAIN, 300
     pos = main_positions(seed)
     msp_cfg = MSPConfig.calibrated(speedup=100.0)
@@ -559,30 +596,24 @@ def phase_main(seed: int) -> dict:
         f"edge slots={eng.edge_capacity}; set-up {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
     st, syn, step_s, update_s = timed_run(eng, seed, steps)
-    launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    check_run("main", st, syn, interval, launches,
-              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0})
-    log(f"[main] synapses after updates: {syn[interval - 1::interval].tolist()}; "
-        f"dropped {int(st.dropped)}; launches {launches}")
     log(f"[main] step {np.mean(step_s) * 1e3:.3f} ms (per chunk "
         f"{[round(s * 1e3, 3) for s in step_s]}); connectivity update "
         f"{[round(s, 4) for s in update_s]} s; peak memory {peak / 2**30:.2f} GiB")
 
-    counts = {"direct": 0, "hermite": 0, "taylor": 0}
-    traversal, inner, wrapped = count_tiers(eng.fmm_cfg, counts)
-    traversal._tier_log_masses = wrapped
-    try:
+    # The repeat run, under the profiler: the launch and tier census.
+    with Census() as c:
         st2, _, _, _ = timed_run(eng, seed, steps)
-    finally:
-        traversal._tier_log_masses = inner
+    launches, tiers = c.launches, tier_census(c.counts)
+    check_run("main", st, syn, interval, launches,
+              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0})
     for f in ("src", "dst", "valid"):
         if not torch.equal(getattr(st.edges, f), getattr(st2.edges, f)):
             raise AssertionError(f"two same-seed runs differ in the edge table ({f})")
-    log(f"[main] repeat run: identical edge tables; tier pairs over "
-        f"{steps // interval} updates: {counts}")
+    log(f"[main] synapses after updates: {syn[interval - 1::interval].tolist()}; "
+        f"dropped {int(st.dropped)}; repeat run: identical edge tables; launches {launches}; "
+        f"tier pairs over {steps // interval} updates: {tiers}")
 
     # Where the time goes: profile 5 activity steps (300..304), then the step
     # whose update follows (399 -> 400), each by layer (record_function).
@@ -599,7 +630,7 @@ def phase_main(seed: int) -> dict:
         log(f"[profile] {label}: " + json.dumps(profiles[label]))
     return dict(launches=launches, step_ms=float(np.mean(step_s)) * 1e3,
                 update_s=update_s, syn=syn[interval - 1::interval].tolist(),
-                peak_gib=peak / 2**30, tiers=counts, profiles=profiles)
+                peak_gib=peak / 2**30, tiers=tiers, profiles=profiles)
 
 
 def profile_window(fn, top: int = 6) -> dict:
@@ -608,11 +639,18 @@ def profile_window(fn, top: int = 6) -> dict:
     range and the `top` costliest operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
+    outer = _CENSUSES[-1] if _CENSUSES else None     # one profiler at a time
+    if outer is not None:
+        outer._stop()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    finally:
+        if outer is not None:
+            outer._start()
     events = prof.key_averages()
     # Every kernel's time is the self device time of the one host-side event
     # (operator or range) that launched it; the device-side copies of the
@@ -800,19 +838,25 @@ def phase_bh(seed: int, fmm: dict) -> dict:
     from repro_torch.core.engine import EngineConfig, PlasticityEngine
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     steps = 300
     eng = PlasticityEngine(main_positions(seed), MSPConfig.calibrated(speedup=100.0),
                            FMMConfig(), EngineConfig(domain=MAIN_DOMAIN, method="barnes_hut"))
     interval = eng.msp_cfg.update_interval
-    ops.reset_launches()
     st, syn, step_s, update_s = timed_run(eng, seed, steps)
-    launches = dict(ops.launches)
+    # The repeat run, under the profiler: the launch census.
+    with Census() as c:
+        st2, _, _, _ = timed_run(eng, seed, steps)
+    launches = c.launches
     check_run("bh", st, syn, interval, launches,
               {"msp_update": steps, "m2l_separable": 0, "gaussian_nbody": 0})
+    for f in ("src", "dst", "valid"):
+        if not torch.equal(getattr(st.edges, f), getattr(st2.edges, f)):
+            raise AssertionError(f"bh: two same-seed runs differ in the edge table ({f})")
+    del st2
     syn_u = syn[interval - 1::interval].tolist()
     log(f"[bh] n={eng.n} depth={eng.structure.depth}: synapses after updates {syn_u}; "
-        f"launches {launches}")
+        f"repeat run: identical edge tables; launches {launches}; leaf rows "
+        f"{c.counts.get('search.rows', 0)}, partners found {c.counts.get('search.rows_found', 0)}")
     log(f"[bh] step {np.mean(step_s) * 1e3:.3f} ms; connectivity update "
         f"{[round(t, 4) for t in update_s]} s")
     log(f"[bh] beside fmm (phase 4): step {fmm['step_ms']:.3f} ms, connectivity update "
@@ -837,16 +881,15 @@ def phase_direct(seed: int) -> dict:
     from repro_torch.core.engine import EngineConfig, PlasticityEngine
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     n, domain, steps = 16384, 547.5, 300
     pos = np.random.default_rng(seed).uniform(0, domain, (n, 3)).astype(np.float32)
     eng = PlasticityEngine(pos, MSPConfig.calibrated(speedup=100.0), FMMConfig(),
                            EngineConfig(domain=domain, method="direct"))
     interval = eng.msp_cfg.update_interval
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    st, syn, step_s, update_s = timed_run(eng, seed, steps)
-    launches = dict(ops.launches)
+    with Census() as c:
+        st, syn, step_s, update_s = timed_run(eng, seed, steps)
+    launches = c.launches
     peak = torch.cuda.max_memory_allocated()
     check_run("direct", st, syn, interval, launches,
               {"msp_update": steps, "m2l_separable": 0, "gaussian_nbody": 0})
@@ -874,18 +917,18 @@ def phase_field(seed: int) -> dict:
     against a float64 sum (rtol 2e-5, atol 1e-6)."""
     from repro_torch.core import direct
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import gaussian_nbody as knb, ops
+    from repro_torch.kernels import gaussian_nbody as knb
     dev = torch.device("cuda")
     delta = FMMConfig().delta
     pos = torch.as_tensor(main_positions(seed), device=dev)
     den_vac = torch.floor(mid_growth_elements(MAIN_N, seed, dev)[2])
     torch.cuda.synchronize()
-    ops.reset_launches()
-    t = time.perf_counter()
-    u = direct.attraction(pos, pos, den_vac, delta)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = dict(ops.launches)
+    with Census() as c:
+        t = time.perf_counter()
+        u = direct.attraction(pos, pos, den_vac, delta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = c.launches
     if launches != {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 1}:
         raise AssertionError(f"field: launches {launches}, expected one gaussian_nbody")
     if not bool(torch.isfinite(u).all()) or not bool((u > 0).all()):
@@ -960,12 +1003,11 @@ FIG5_RTOL, FIG5_FLOOR_PCT = 1e-3, 1e-4
 
 
 def phase_fig5(num_boxes: int = 500) -> dict:
-    from repro_torch.kernels import ops
-    ops.reset_launches()
-    t = time.perf_counter()
-    card, boxes = fig5_errors("cuda", num_boxes)
-    wall = time.perf_counter() - t
-    launches = dict(ops.launches)
+    with Census() as c:
+        t = time.perf_counter()
+        card, boxes = fig5_errors("cuda", num_boxes)
+        wall = time.perf_counter() - t
+    launches = c.launches
     if launches != {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 2 * num_boxes}:
         raise AssertionError(f"fig5: launches {launches}, expected {2 * num_boxes} "
                              f"gaussian_nbody")
@@ -1011,7 +1053,6 @@ def phase_sweep(seed: int, main: dict) -> dict:
     from repro_torch.core.ensemble import EnsembleEngine, replica_noises, stack_states
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch import sweep
     steps = 300
     eng = PlasticityEngine(main_positions(seed), MSPConfig.calibrated(speedup=100.0),
@@ -1025,17 +1066,18 @@ def phase_sweep(seed: int, main: dict) -> dict:
     noises = replica_noises(seed, k, eng.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
     recs = []
 
     def run(st, num):
         st, r = ens.simulate(st, num, noises=noises, params=params)
         recs.append(r)
         return st, r
-    t = time.perf_counter()
-    states, syn, step_s, update_s = timed_run(eng, seed, steps, stack_states([st0] * k), run)
-    batch_s = time.perf_counter() - t
-    launches = dict(ops.launches)
+    with Census() as c:
+        t = time.perf_counter()
+        states, syn, step_s, update_s = timed_run(eng, seed, steps, stack_states([st0] * k),
+                                                  run)
+        batch_s = time.perf_counter() - t
+    launches = c.launches
     peak = torch.cuda.max_memory_allocated()
     check_launches("sweep", launches, {"msp_update": steps, "m2l_separable": None,
                                        "gaussian_nbody": 0})
@@ -1130,14 +1172,13 @@ def phase_m2m(seed: int, main: dict) -> dict:
     from repro_torch.core.engine import EngineConfig, PlasticityEngine
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     steps = 300
     eng = PlasticityEngine(main_positions(seed), MSPConfig.calibrated(speedup=100.0),
                            FMMConfig(), EngineConfig(domain=MAIN_DOMAIN, pyramid="m2m"))
     interval = eng.msp_cfg.update_interval
-    ops.reset_launches()
-    st, syn, step_s, update_s = timed_run(eng, seed, steps)
-    launches = dict(ops.launches)
+    with Census() as c:
+        st, syn, step_s, update_s = timed_run(eng, seed, steps)
+    launches = c.launches
     check_run("m2m", st, syn, interval, launches,
               {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0})
     syn_u = syn[interval - 1::interval].tolist()
@@ -1218,7 +1259,6 @@ def phase_probes(seed: int) -> dict:
     from repro_torch.core.engine import EngineConfig, PlasticityEngine
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     steps, chunk, lesion_at = 300, 100, 150
     pos = main_positions(seed)
     eng = PlasticityEngine(pos, MSPConfig.calibrated(speedup=100.0), FMMConfig(),
@@ -1243,15 +1283,15 @@ def phase_probes(seed: int) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out_dir, ck_dir = os.path.join(tmp, "probes"), os.path.join(tmp, "ckpt")
         mgr = CheckpointManager(ck_dir)
-        ops.reset_launches()
-        t = time.perf_counter()
-        got, recs, _ = probes.simulate_chunked(eng, st0, steps, pset, seed=seed,
-                                               out_dir=out_dir,
-                                               interventions={lesion_at: lesion},
-                                               manager=mgr)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t
-        launches = dict(ops.launches)
+        with Census() as c:
+            t = time.perf_counter()
+            got, recs, _ = probes.simulate_chunked(eng, st0, steps, pset, seed=seed,
+                                                   out_dir=out_dir,
+                                                   interventions={lesion_at: lesion},
+                                                   manager=mgr)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t
+        launches = c.launches
         mgr.wait()                       # the checkpoints still being written
         probed_s = time.perf_counter() - t
         check_launches("probes", launches, {"msp_update": steps, "m2l_separable": None,
@@ -1335,7 +1375,6 @@ def phase_serve(seed: int, sweep: dict) -> dict:
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.probes import CalciumProbe, ProbeSet, SpikeRasterProbe
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve import default_traffic, occupancy_histogram, replay_traffic
     from repro_torch.serve import SimulationService
     traffic = default_traffic(seed=SERVE_SEED, num_sessions=6, pool_size=MAIN_N,
@@ -1412,9 +1451,9 @@ def phase_serve(seed: int, sweep: dict) -> dict:
             updates.append((k.get("n_active"), dt))
             return out
         svc.engine.connectivity_update = timed_update
-        ops.reset_launches()
-        events, replay_s = sync_time(lambda: replay_traffic(svc, traffic))
-        launches = dict(ops.launches)
+        with Census() as c:
+            events, replay_s = sync_time(lambda: replay_traffic(svc, traffic))
+        launches = c.launches
         peak = torch.cuda.max_memory_allocated()
         results = {sid: svc.result(sid) for sid in reqs}
         hist = occupancy_histogram(svc)
@@ -1567,7 +1606,6 @@ def emulated_helpers(eng, st, p: int, seed: int) -> dict:
     not timed)."""
     from repro_torch.core import octree, synapses, traversal
     from repro_torch.core.noise import GeneratorNoise
-    from repro_torch.kernels import ops
     t0 = time.perf_counter()
     n, cfg = eng.n, eng.fmm_cfg
     vac = lambda elems, degree: torch.clamp(
@@ -1591,12 +1629,12 @@ def emulated_helpers(eng, st, p: int, seed: int) -> dict:
     del raws
     noise = GeneratorNoise(seed, eng.device)
     tgt = traversal._root(want)
-    ops.reset_launches()
-    for level in range(1, eng.structure.depth + 1):
-        parts = [traversal.descend_level_partial(tree, spans, r, level, want[level], tgt, cfg,
-                                                 noise, 7) for r in range(p)]
-        tgt = sum(parts[1:], start=parts[0]) - 1
-    partial_m2l = ops.launches["m2l_separable"]
+    with Census() as c:
+        for level in range(1, eng.structure.depth + 1):
+            parts = [traversal.descend_level_partial(tree, spans, r, level, want[level], tgt,
+                                                     cfg, noise, 7) for r in range(p)]
+            tgt = sum(parts[1:], start=parts[0]) - 1
+    partial_m2l = c.launches["m2l_separable"]
     full_tgt = traversal.descend(tree, want, cfg, noise, 7)
     if not torch.equal(tgt, full_tgt):
         raise AssertionError(f"dist p={p}: merged descent differs")
@@ -1663,7 +1701,6 @@ def phase_dist(seed: int, main: dict) -> dict:
     from repro_torch.core.engine import EngineConfig, PlasticityEngine
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch import brain_dryrun, mesh
     from repro_torch.launch.distributed import Job, run_ranks, same_run
     steps = 300
@@ -1697,10 +1734,10 @@ def phase_dist(seed: int, main: dict) -> dict:
                 eng, st, syn, step_s, update_s = refs[method]
                 if not np.array_equal(deng.positions_np, eng.positions_np):
                     raise AssertionError(f"dist {tag}: sorted positions differ")
-                ops.reset_launches()
-                dst, dsyn, dstep_s, dupdate_s = timed_run(
-                    deng, seed, steps, simulate=lambda s, k: deng.simulate(s, k, seed=seed))
-                run_launches = dict(ops.launches)
+                with Census() as c:
+                    dst, dsyn, dstep_s, dupdate_s = timed_run(
+                        deng, seed, steps, simulate=lambda s, k: deng.simulate(s, k, seed=seed))
+                run_launches = c.launches
                 check_launches(f"dist {tag}", run_launches, {
                     "msp_update": steps, "gaussian_nbody": 0,
                     "m2l_separable": m2l_per_update * (steps // interval) if method == "fmm"
@@ -1834,7 +1871,6 @@ def phase_sweep2d(seed: int, sweep: dict) -> dict:
     from repro_torch.core.ensemble import EnsembleEngine, replica, replica_noises, stack_states
     from repro_torch.core.msp import MSPConfig
     from repro_torch.core.traversal import FMMConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch import mesh, sweep as msweep
     from repro_torch.launch.distributed import EnsembleJob, run_ranks, same_run
     from repro_torch.launch.serve import ServiceJob, build_service, default_traffic
@@ -1856,9 +1892,9 @@ def phase_sweep2d(seed: int, sweep: dict) -> dict:
         st, r = ens.simulate(st, num, noises=noises, params=params)
         ref_recs.append(r)
         return st, r
-    ops.reset_launches()
-    ref, _, ref_step_s, ref_update_s = timed_run(eng, seed, steps, st0, ref_run)
-    ref_launches = dict(ops.launches)         # what the distributed run must launch
+    with Census() as c:
+        ref, _, ref_step_s, ref_update_s = timed_run(eng, seed, steps, st0, ref_run)
+    ref_launches = c.launches                 # what the distributed run must launch
     ref_recs = type(ref_recs[0])(*(torch.cat(f) for f in zip(*ref_recs)))
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep2d_") as tmp:
@@ -1880,12 +1916,12 @@ def phase_sweep2d(seed: int, sweep: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             data.reset()
             ensg.reset()
-            ops.reset_launches()
-            t = time.perf_counter()
-            dst, syn, step_s, update_s = timed_run(deng, seed, steps, dens.shard_states(st0),
-                                                   run)
-            run_s = time.perf_counter() - t
-            launches = dict(ops.launches)
+            with Census() as c:
+                t = time.perf_counter()
+                dst, syn, step_s, update_s = timed_run(deng, seed, steps,
+                                                       dens.shard_states(st0), run)
+                run_s = time.perf_counter() - t
+            launches = c.launches
             peak = torch.cuda.max_memory_allocated()
             run_counts = {g: {c: dict(v) for c, v in grp.counts.items()}
                           for g, grp in (("data", data), ("ensemble", ensg))}
@@ -1942,13 +1978,13 @@ def phase_sweep2d(seed: int, sweep: dict) -> dict:
                       + 4 * (spos[:, 2] > half)).astype(np.int64)
             pset = probes.ProbeSet((probes.SpikeRasterProbe(), probes.CalciumProbe(),
                                     probes.TurnoverProbe(region, 8)), chunk_size=probe_steps)
-            ops.reset_launches()
-            t = time.perf_counter()
-            pst, precs, pps = dens.simulate(dens.shard_states(st0), probe_steps, noises=noises,
-                                            params=params, probes=pset)
-            torch.cuda.synchronize()
-            probed_s = time.perf_counter() - t
-            probe_launches = dict(ops.launches)
+            with Census() as c:
+                t = time.perf_counter()
+                pst, precs, pps = dens.simulate(dens.shard_states(st0), probe_steps,
+                                                noises=noises, params=params, probes=pset)
+                torch.cuda.synchronize()
+                probed_s = time.perf_counter() - t
+            probe_launches = c.launches
             for f, a, b in zip(precs._fields, precs, recs):
                 if not torch.equal(a, b[:probe_steps]):
                     raise AssertionError(f"sweep2d: the probed run's {f} differs from the "
@@ -2328,14 +2364,13 @@ def lm_served(seed: int) -> dict:
 def phase_lm(seed: int) -> dict:
     """16. lm: the LM substrate's serving path (no kernel of the three)."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     matmul = torch.backends.cuda.matmul
     reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
     # bf16 GEMMs sum in float32 all the way, as the CPU's do; float32 products
     # (unembedding, router, MLA's absorbed decode) stay out of TF32 (main()).
     matmul.allow_bf16_reduced_precision_reduction = False
-    ops.reset_launches()
+    kc = Census().open()
     out = {"served": lm_served(seed)}
 
     # (b) decode consistency at full width and depth, where no expert can
@@ -2406,8 +2441,9 @@ def phase_lm(seed: int) -> dict:
     log(f"[lm] (e) reduced widths, card vs CPU: {json.dumps(out['reduced'])}")
     lm_dispatch_card_vs_cpu(seed)
 
-    if any(ops.launches.values()):
-        raise AssertionError(f"lm: the LM path launched {ops.launches}")
+    kc.close()
+    if any(kc.launches.values()):
+        raise AssertionError(f"lm: the LM path launched {kc.launches}")
     matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
     return out
 
@@ -2874,11 +2910,10 @@ def train_determinism_and_restart(seed: int) -> dict:
 
 def phase_train(seed: int) -> dict:
     """17. train: the LM substrate's training path (no kernel of the three)."""
-    from repro_torch.kernels import ops
     matmul = torch.backends.cuda.matmul
     reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False    # as phase 16
-    ops.reset_launches()
+    kc = Census().open()
     out = {"whole": train_whole(seed)}
     torch.cuda.empty_cache()
     out["full_width"] = train_full_width(seed)
@@ -2887,9 +2922,10 @@ def phase_train(seed: int) -> dict:
     out["flash_backward"] = train_flash_backward(seed)
     torch.cuda.empty_cache()
     out["determinism"] = train_determinism_and_restart(seed)
-    if any(ops.launches.values()):
-        raise AssertionError(f"train: the training path launched {ops.launches}")
-    out["launches"] = dict(ops.launches)
+    kc.close()
+    if any(kc.launches.values()):
+        raise AssertionError(f"train: the training path launched {kc.launches}")
+    out["launches"] = kc.launches
     matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
     return out
 
@@ -3011,7 +3047,6 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch import mesh, steps
     from repro_torch.models import model as M
     from repro_torch.models.config import TRAIN_4K
@@ -3026,7 +3061,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
         f"{TRAIN_4K.global_batch}): {json.dumps(arithmetic)}")
 
     run = lambda *args: mesh_train_run(cfg, data, *args)
-    ops.reset_launches()
+    kc = Census().open()
     model = M.init_params(cfg, seed, LM_DEV)
     single = run(steps.make_train_step(cfg, opt_cfg, remat=True), model,
                  steps.init_train_state(model, opt_cfg))
@@ -3046,8 +3081,9 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
             del state
         finally:
             dist.destroy_process_group()
-    if any(ops.launches.values()):
-        raise AssertionError(f"lm_mesh: the mesh step launched {ops.launches}")
+    kc.close()
+    if any(kc.launches.values()):
+        raise AssertionError(f"lm_mesh: the mesh step launched {kc.launches}")
     differ = bits_differ(single, fsdp)
     if differ:
         raise AssertionError(f"lm_mesh: the 1 x 1 mesh step differs from the single-device "
@@ -3060,7 +3096,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
                single_step_ms=single["ms"], mesh_step_ms=fsdp["ms"],
                single_median_ms=med(single["ms"]), mesh_median_ms=med(fsdp["ms"]),
                single_peak_gib=single["peak_gib"], mesh_peak_gib=fsdp["peak_gib"],
-               census_one_step=fsdp["counts"], launches=dict(ops.launches),
+               census_one_step=fsdp["counts"], launches=kc.launches,
                arithmetic=arithmetic, phase17_median_ms=train["whole"]["median_step_ms"],
                phase17_peak_gib=train["whole"]["peak_gib"], card=card,
                profile_single=single["profile"], profile_mesh=fsdp["profile"])
@@ -3078,7 +3114,7 @@ def phase_lm_mesh(seed: int, train: dict, card: str) -> dict:
         f"{out['mesh_median_ms']:.2f} ms ({out['mesh_median_ms'] / out['single_median_ms'] - 1:+.2%}"
         f"); peak single {out['single_peak_gib']:.2f} GiB, mesh {out['mesh_peak_gib']:.2f} GiB; "
         f"gathers a step {gathers['calls']} ({gathers['bytes'] / 1e9:.3f} GB, largest "
-        f"{gathers['largest'] / 1e6:.1f} MB); kernel launches {dict(ops.launches)}")
+        f"{gathers['largest'] / 1e6:.1f} MB); kernel launches {kc.launches}")
     log("[lm_mesh] " + json.dumps(out))
     matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
     out["single_run"] = single        # phase 20 holds the tensor-parallel step against it
@@ -3285,13 +3321,12 @@ def phase_lm_serve_mesh(seed: int, lm: dict, card: str) -> dict:
     import tempfile
     import torch.distributed as dist
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.launch import mesh
     matmul = torch.backends.cuda.matmul
     reduced_reduction = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False    # as phases 16-18
     cfg = configs.get(LM_SERVED)
-    ops.reset_launches()
+    kc = Census().open()
     single = mesh_serve_run(cfg, seed)                        # (b) first: its tokens teach (a)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_serve_mesh_") as tmp:
         layout = mesh.make_host_mesh(1, 1, f"file://{tmp}/rendezvous", 0, LM_DEV)
@@ -3302,8 +3337,9 @@ def phase_lm_serve_mesh(seed: int, lm: dict, card: str) -> dict:
             full = mesh_full_width(layout, seed)
         finally:
             dist.destroy_process_group()
-    if any(ops.launches.values()):
-        raise AssertionError(f"lm_serve_mesh: the layout's serving launched {ops.launches}")
+    kc.close()
+    if any(kc.launches.values()):
+        raise AssertionError(f"lm_serve_mesh: the layout's serving launched {kc.launches}")
     agree = float((served["tokens"] == single["tokens"]).float().mean())
     pick = ("prefill_ms", "prefill_tok_s", "decode_step_ms", "peak_gib")
     out = dict(model=cfg.name, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW, card=card,
@@ -3313,7 +3349,7 @@ def phase_lm_serve_mesh(seed: int, lm: dict, card: str) -> dict:
                census=served["census"], held=served["held"], full_width=full,
                profile_decode={"mesh": served["profile_decode"],
                                "single": single["profile_decode"]},
-               launches=dict(ops.launches),
+               launches=kc.launches,
                phase16_prefill_ms=lm["served"]["prefill_ms"],
                phase16_decode_step_ms=lm["served"]["decode_step_ms"])
     log(f"[lm_serve_mesh] (a) {cfg.name} whole on a 1 x 1 NCCL layout ({card}), "
@@ -3381,7 +3417,6 @@ def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
     import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch import mesh, steps
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
@@ -3391,7 +3426,7 @@ def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
     cfg, opt_cfg, data = configs.get(TRAIN_ARCH), adamw.OptConfig(**TRAIN_OPT), \
         DataConfig(seed, "lm")
     single = mesh_run.pop("single_run")
-    ops.reset_launches()
+    kc = Census().open()
     family = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_tp_train_") as tmp:
         layout = mesh.make_host_mesh(1, 1, f"file://{tmp}/rendezvous", 0, LM_DEV)
@@ -3437,8 +3472,9 @@ def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
                     f"peaks {one['peak_gib']:.2f} / {got['peak_gib']:.2f} GiB")
         finally:
             dist.destroy_process_group()
-    if any(ops.launches.values()):
-        raise AssertionError(f"lm_tp_train: the tensor-parallel step launched {ops.launches}")
+    kc.close()
+    if any(kc.launches.values()):
+        raise AssertionError(f"lm_tp_train: the tensor-parallel step launched {kc.launches}")
     differ = bits_differ(single, tp)
     if differ:
         raise AssertionError(f"lm_tp_train: the 1 x 1 tensor-parallel step differs from the "
@@ -3450,7 +3486,7 @@ def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
                leaves=len(single["grads"][0]), single_step_ms=single["ms"], tp_step_ms=tp["ms"],
                single_median_ms=med(single["ms"]), tp_median_ms=med(tp["ms"]),
                single_peak_gib=single["peak_gib"], tp_peak_gib=tp["peak_gib"],
-               census_one_step=census, launches=dict(ops.launches), card=card,
+               census_one_step=census, launches=kc.launches, card=card,
                ranges_device_ms={k: ranges.get(k, 0.0) for k in TP_RANGES},
                profile_single=single["profile"], profile_tp=tp["profile"], families=family)
     log(f"[lm_tp_train] profiled fourth step, {TRAIN_B} x {MESH_PROFILE_S} ({card}): wall "
@@ -3465,7 +3501,7 @@ def phase_lm_tp_train(seed: int, mesh_run: dict, card: str) -> dict:
         f"median step (steps 2-3) single {out['single_median_ms']:.2f} ms, tensor parallel "
         f"{out['tp_median_ms']:.2f} ms ({out['tp_median_ms'] / out['single_median_ms'] - 1:+.2%}"
         f"); peak single {out['single_peak_gib']:.2f} GiB, tensor parallel "
-        f"{out['tp_peak_gib']:.2f} GiB; kernel launches {dict(ops.launches)}")
+        f"{out['tp_peak_gib']:.2f} GiB; kernel launches {kc.launches}")
     log("[lm_tp_train] " + json.dumps(out))
     matmul.allow_bf16_reduced_precision_reduction = reduced_reduction
     return out
@@ -3486,11 +3522,10 @@ def phase_dryrun(mesh_run: dict, serve_run: dict, tp_run: dict, card: str) -> di
     rows (`dryrun.run_cell`) at 16 x 16.  It launches no kernel and puts
     nothing on the card."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import adamw
-    ops.reset_launches()
+    kc = Census().open()
     out = dict(card=card, train={}, serve={}, rows={})
     cfg, opt_cfg = configs.get(TRAIN_ARCH), adamw.OptConfig(**TRAIN_OPT)
     train = ShapeConfig("phase18_20", TRAIN_S, TRAIN_B, "train")
@@ -3541,9 +3576,10 @@ def phase_dryrun(mesh_run: dict, serve_run: dict, tp_run: dict, card: str) -> di
             raise AssertionError(f"dryrun (c) {arch} {shape_name}: {row}")
         out["rows"][f"{arch}|{shape_name}|16x16"] = row
         log(f"[dryrun] (c) row {arch}|{shape_name}|16x16: {json.dumps(row)}")
-    if any(ops.launches.values()):
-        raise AssertionError(f"dryrun: the dry run launched {ops.launches}")
-    out["launches"] = dict(ops.launches)
+    kc.close()
+    if any(kc.launches.values()):
+        raise AssertionError(f"dryrun: the dry run launched {kc.launches}")
+    out["launches"] = kc.launches
     log(f"[dryrun] kernel launches {out['launches']} ({card})")
     return out
 

@@ -24,7 +24,9 @@ give the plain path's results bit for bit.  Probes (`core.probes`) ride
 along as pure observers.
 Each layer runs inside a `torch.profiler.record_function` range (`step.*`,
 `update.*`, `traversal.*`, `bh.descend`, `direct.find`), so a profile
-attributes device time to layers.
+attributes device time to layers; a network's whole connectivity update is
+one `update.connectivity` range.  While a profiler records, the update's
+work is counted too (`repro_torch.trace`).
 Every random draw comes from a noise object (`core.noise`), by default the
 one `EngineConfig.rng` names, seeded from `seed`: "batched" draws whole
 arrays from a generator, "counter" (`core.streams`) keys every value by its
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch import device as _device
+from repro_torch import device as _device, trace
 from repro_torch.core import barnes_hut, msp, octree, synapses, traversal
 from repro_torch.core.msp import MSPConfig, NeuronState
 from repro_torch.core import noise as _noise
@@ -308,9 +310,16 @@ class PlasticityEngine:
         """The update with the draws of `step` (the step counter before the
         activity step that triggered it).  Returns new tensors: nothing of
         `state` is written.  n_active: the active row count of a padded
-        state; the update then runs on the active prefix (module docs)."""
-        if n_active is not None and n_active < self.n:
-            return self._update_prefix(state, noise, step, params, int(n_active))
+        state; the update then runs on the active prefix (module docs).
+        The update runs in one `update.connectivity` range, on either path."""
+        with record_function("update.connectivity"):
+            trace.count("update.networks", 1)
+            if n_active is not None and n_active < self.n:
+                return self._update_prefix(state, noise, step, params, int(n_active))
+            return self._update(state, noise, step, params)
+
+    def _update(self, state: SimState, noise, step: int,
+                params: Optional[KernelParams]) -> SimState:
         n = self.n
         neurons = state.neurons
         with record_function("update.delete_excess"):
@@ -326,6 +335,8 @@ class PlasticityEngine:
         with record_function("update.conflicts_insert"):
             req_cnt = torch.clamp(ax_vac.to(torch.int32),
                                   max=self.engine_cfg.max_requests_per_neuron)
+            if trace.recording():
+                trace.count("update.requested", req_cnt.sum())
             req_cnt = torch.where(partner >= 0, req_cnt, 0)
             accepted = synapses.resolve_conflicts(partner, req_cnt,
                                                   den_vac.to(torch.int32),
@@ -340,7 +351,7 @@ class PlasticityEngine:
         cap = eng.edge_capacity
         sub = state._replace(neurons=NeuronState(*(t[:m] for t in state.neurons)),
                              edges=SynapseState(*(t[:cap] for t in state.edges)))
-        new = eng.connectivity_update(sub, noise, step, params)
+        new = eng._update(sub, noise, step, params)
         edges = SynapseState(*(torch.cat([a, b[cap:]]) for a, b in zip(new.edges, state.edges)))
         return state._replace(edges=edges, dropped=new.dropped)
 

@@ -204,16 +204,21 @@ class EnsembleEngine:
         """One batched activity step, then every replica's connectivity
         update on the steps the shared counter schedules.  rows: each
         replica's `KernelParams` (or None); signs: their stacked sign
-        vectors (`stacked_signs`)."""
+        vectors (`stacked_signs`).  The K draws run in the `step.draws`
+        range, each update in its own `update.connectivity`, the stack of
+        the updated replicas in `update.stack`."""
         eng = self.engine
         s = states.step
-        u = torch.stack([nz.spike_uniform(s, eng.rows) for nz in noises])
+        with record_function("step.draws"):
+            u = torch.stack([nz.spike_uniform(s, eng.rows) for nz in noises])
         neurons = activity_step(states.neurons, states.edges, signs, u, eng.msp_cfg)
         states = states._replace(neurons=neurons, step=s + 1)
         if states.step % eng.msp_cfg.update_interval == 0:
-            states = stack_states([
-                eng.connectivity_update(replica(states, k), nz, s, rows[k])
-                for k, nz in enumerate(noises)])
+            parts = [eng.connectivity_update(replica(states, k), nz, s, rows[k])
+                     for k, nz in enumerate(noises)]
+            with record_function("update.stack"):
+                states = stack_states(parts)
+            del parts       # the K replicas' own tables, before the records' pass
         return states, step_records(neurons, states.edges)
 
     def simulate(self, states: SimState, num_steps: int, seed: int = 0, noises=None,

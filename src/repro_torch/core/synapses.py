@@ -14,6 +14,9 @@ every run and device: ranks come from stable sorts, degrees from integer
 counts, and `synaptic_input` adds +-1.0 terms, which sum exactly in any
 order.  Record sums go through `det_sum`, never `torch.sum`.
 
+While a profiler records, deletion and insertion count the synapses they
+remove and place (`repro_torch.trace`).
+
 The table has 64 slots per neuron and holds few synapses, and every free
 slot points at neuron 0: the reductions first compact the slots that
 contribute, so that free slots neither cost a pass of atomics nor pile onto
@@ -24,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from repro_torch import trace
 
 
 def det_sum(vals: torch.Tensor) -> torch.Tensor:
@@ -140,6 +145,8 @@ def delete_excess(state: SynapseState, ax_elems: torch.Tensor,
             rank = _rank_within_segment(seg_ids, noise.delete_bits(step, side, slots),
                                         valid)
             kill |= rank < excess[seg_ids.long()]
+    if trace.recording():
+        trace.count("update.deleted", kill.sum())
     return state._replace(valid=valid & ~kill)
 
 
@@ -255,6 +262,7 @@ def insert(state: SynapseState, partner: torch.Tensor, accepted: torch.Tensor,
     new_src = torch.where(take, buf_src[pick], state.src)
     new_dst = torch.where(take, buf_dst[pick], state.dst)
     placed = take.sum()
+    trace.count("update.committed", placed)
     return (SynapseState(src=new_src, dst=new_dst, valid=state.valid | take),
             total_new - placed)
 

@@ -4,21 +4,17 @@ A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the CUDA kernel, or the call raises.  There is no switch and no fallback:
 on the card the main path runs the kernels and nothing else.
 
-`launches` counts, per kernel, the launches of the CUDA kernel made through
-these wrappers (never the plain version); `reset_launches` zeroes it.
+While a profiler records, the wrappers count (`repro_torch.trace`) each
+launch of a CUDA kernel, `kernels.<kernel>.launches` (never a call of the
+plain version), and the pairs handed to `m2l_separable` on either path,
+`kernels.m2l_separable.pairs`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import gaussian_nbody as _nbody, m2l_pair, msp_update as _msp
-
-launches = {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 def msp_update(x, refrac, calcium, syn_input, uniform, cfg):
@@ -29,18 +25,19 @@ def msp_update(x, refrac, calcium, syn_input, uniform, cfg):
         return _msp.msp_update_plain(x, refrac, calcium, syn_input, uniform, k)
     out = _msp.msp_update_cuda(x, refrac, calcium, syn_input, uniform, k)
     if x.shape[0]:
-        launches["msp_update"] += 1
+        trace.count("kernels.msp_update.launches", 1)
     return out
 
 
 def m2l_separable(moms: torch.Tensor, herm: torch.Tensor, y: torch.Tensor,
                   p: int = 4) -> torch.Tensor:
     """Envelope-free separable M2L series.  (B, p^3), (B, p^3), (B, 3) -> (B,)."""
+    trace.count("kernels.m2l_separable.pairs", moms.shape[0])
     if moms.device.type == "cpu":
         return m2l_pair.m2l_separable_plain(moms, herm, y, p)
     out = m2l_pair.m2l_separable_cuda(moms, herm, y, p)
     if moms.shape[0]:
-        launches["m2l_separable"] += 1
+        trace.count("kernels.m2l_separable.launches", 1)
     return out
 
 
@@ -51,5 +48,5 @@ def gaussian_nbody(targets: torch.Tensor, sources: torch.Tensor,
         return _nbody.gaussian_nbody_plain(targets, sources, weights, delta)
     out = _nbody.gaussian_nbody_cuda(targets, sources, weights, delta)
     if targets.shape[0]:
-        launches["gaussian_nbody"] += 1
+        trace.count("kernels.gaussian_nbody.launches", 1)
     return out

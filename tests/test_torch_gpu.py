@@ -11,12 +11,28 @@ port's dependencies are installed.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import trace
 from repro_torch.core.engine import EngineConfig, PlasticityEngine
 from repro_torch.core.msp import MSPConfig
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.traversal import FMMConfig
 from repro_torch.kernels import gaussian_nbody as knb, m2l_pair, msp_update as kmsp, ops
+
+
+KERNELS = ("msp_update", "m2l_separable", "gaussian_nbody")
+
+
+def _launches(fn):
+    """fn()'s result, and the CUDA launches of each kernel it made, counted
+    by the registry (`repro_torch.trace`) under the profiler, its switch."""
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    got = trace.counts()
+    trace.reset()
+    return out, {k: got.get(f"kernels.{k}.launches", 0) for k in KERNELS}
 
 
 @pytest.fixture
@@ -83,11 +99,10 @@ def test_gaussian_nbody_kernel_vs_plain(cuda_device, n, m):
     t = lambda hi, shape: torch.from_numpy(
         rng.uniform(0, hi, shape).astype(np.float32)).to(cuda_device)
     tgt, src, w = t(3000, (n, 3)), t(3000, (m, 3)), t(5, (m,))
-    ops.reset_launches()
-    got = ops.gaussian_nbody(tgt, src, w, 750.0 ** 2)
+    got, launches = _launches(lambda: ops.gaussian_nbody(tgt, src, w, 750.0 ** 2))
     want = knb.gaussian_nbody_plain(tgt, src, w, 750.0 ** 2)
     torch.cuda.synchronize()
-    assert ops.launches["gaussian_nbody"] == 1
+    assert launches["gaussian_nbody"] == 1
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
 
 
@@ -142,8 +157,7 @@ def test_main_path_on_card_equals_plain_versions_on_cpu(cuda_device):
         c = torch.from_numpy(init).to(dev)
         st = st._replace(neurons=st.neurons._replace(calcium=c[0], ax_elems=c[1],
                                                      den_elems=c[2]))
-        ops.reset_launches()
-        out[dev.type] = eng.simulate(st, 300, noise=_CpuDraws(1, dev)), dict(ops.launches)
+        out[dev.type] = _launches(lambda: eng.simulate(st, 300, noise=_CpuDraws(1, dev)))
     (sg, rg), launches = out["cuda"]
     (sc, rc), _ = out["cpu"]
     assert launches["msp_update"] == 300 and launches["m2l_separable"] > 0
@@ -171,8 +185,7 @@ def test_other_methods_on_card_equal_plain_versions_on_cpu(cuda_device, method):
         c = torch.from_numpy(init).to(dev)
         st = st._replace(neurons=st.neurons._replace(calcium=c[0], ax_elems=c[1],
                                                      den_elems=c[2]))
-        ops.reset_launches()
-        out[dev.type] = eng.simulate(st, 300, noise=_CpuDraws(1, dev)), dict(ops.launches)
+        out[dev.type] = _launches(lambda: eng.simulate(st, 300, noise=_CpuDraws(1, dev)))
     (sg, rg), launches = out["cuda"]
     (sc, rc), _ = out["cpu"]
     assert launches == {"msp_update": 300, "m2l_separable": 0, "gaussian_nbody": 0}
@@ -272,9 +285,8 @@ def test_served_traffic_on_card_equals_cpu(cuda_device):
     """Every session of the served traffic: the card (kernels) and the CPU
     (plain versions) give the same records, final state and probe rows, bit
     for bit; the card's run went through msp_update."""
-    ops.reset_launches()
-    card_events, card = _serve(cuda_device)
-    assert ops.launches["msp_update"] > 0
+    (card_events, card), launches = _launches(lambda: _serve(cuda_device))
+    assert launches["msp_update"] > 0
     cpu_events, cpu = _serve("cpu")
     assert card_events == cpu_events and any(e.startswith("restored") for e in cpu_events)
     for sid, want in cpu.items():
@@ -306,7 +318,6 @@ def test_lm_reduced_on_card_equals_cpu(cuda_device, name):
     from repro_torch.models import model as M
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = dataclasses.replace(configs.get(name).reduced(), capacity_factor=8.0)
-    ops.reset_launches()
     card = M.init_params(cfg, 0, cuda_device)
     cpu = M.LMModel(cfg, None, "cpu")
     cpu.load_state_dict(card.state_dict())
@@ -314,15 +325,16 @@ def test_lm_reduced_on_card_equals_cpu(cuda_device, name):
     if cfg.is_encoder:
         x = torch.randn((2, 19, cfg.frontend_dim), generator=gen)
         encode = steps.make_prefill_step(cfg)
-        got, want = [encode(card, {"inputs": x.to(cuda_device)})], [encode(cpu, {"inputs": x})]
+        got, launches = _launches(lambda: [encode(card, {"inputs": x.to(cuda_device)})])
+        want = [encode(cpu, {"inputs": x})]
     else:
         toks = torch.randint(0, cfg.vocab_size, (2, 19), generator=gen, dtype=torch.int32)
-        got = lm_serve.score(card, toks.to(cuda_device), 16)
+        got, launches = _launches(lambda: lm_serve.score(card, toks.to(cuda_device), 16))
         want = lm_serve.score(cpu, toks, 16)
     for g, w in zip(got, want, strict=True):
         d = (g.cpu() - w).abs()
         assert torch.isfinite(g).all() and float(d.max()) <= 0.25 and float(d.mean()) <= 0.02
-    assert not any(ops.launches.values())
+    assert not any(launches.values())
 
 
 @pytest.mark.gpu
@@ -359,14 +371,14 @@ def test_lm_train_step_on_card_equals_cpu(cuda_device, name):
     from repro_torch.optim import adamw
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg, opt_cfg = _train_cfg(name), adamw.OptConfig(warmup_steps=2, total_steps=10)
-    ops.reset_launches()
     card = M.init_params(cfg, 0, cuda_device)
     cpu = M.LMModel(cfg, None, "cpu")
     cpu.load_state_dict(card.state_dict())
     batch = make_batch(cfg, DataConfig(seed=1), 0, 2, 16, "cpu")
     step = steps.make_train_step(cfg, opt_cfg)
-    sg, mg = step(card, steps.init_train_state(card, opt_cfg),
-                  {k: v.to(cuda_device) for k, v in batch.items()})
+    (sg, mg), launches = _launches(lambda: step(
+        card, steps.init_train_state(card, opt_cfg),
+        {k: v.to(cuda_device) for k, v in batch.items()}))
     sw, mw = step(cpu, steps.init_train_state(cpu, opt_cfg), batch)
     assert abs(float(mg["loss"]) - float(mw["loss"])) <= 0.05
     assert abs(float(mg["grad_norm"]) - float(mw["grad_norm"])) <= 0.05 * float(mw["grad_norm"])
@@ -377,7 +389,7 @@ def test_lm_train_step_on_card_equals_cpu(cuda_device, name):
         assert float(d.max()) <= 2 * lr * 1.001, k
         sure = mu > 0.05 * max(float(mu.max()), 1e-6 * top)
         assert bool((d[sure] <= 1e-6 * w[sure].abs() + 1e-9).all()), k
-    assert not any(ops.launches.values())
+    assert not any(launches.values())
 
 
 @pytest.mark.gpu

@@ -15,11 +15,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.core import engine as jengine
 from repro.core import msp as jmsp
 from repro.core import synapses as jsyn
 from repro.kernels import ref
+from repro_torch import trace
 from repro_torch.core import msp
 from repro_torch.kernels import msp_update as kmsp, ops
 
@@ -162,10 +164,14 @@ def test_m2l_plain_vs_ref(b):
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    ops.reset_launches()
+    """Under the profiler (the registry's switch) the plain versions count
+    no launch; m2l_separable's pairs count on either path."""
+    trace.reset()
     args = _msp_inputs(16, 0)
-    ops.msp_update(*map(torch.from_numpy, args), CONFIGS["paper"])
-    z = torch.zeros((3, 64))
-    ops.m2l_separable(z, z, torch.zeros((3, 3)))
-    ops.gaussian_nbody(torch.zeros((5, 3)), torch.ones((7, 3)), torch.ones(7), 1.0)
-    assert ops.launches == {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 0}
+    with profile(activities=[ProfilerActivity.CPU]):
+        ops.msp_update(*map(torch.from_numpy, args), CONFIGS["paper"])
+        z = torch.zeros((3, 64))
+        ops.m2l_separable(z, z, torch.zeros((3, 3)))
+        ops.gaussian_nbody(torch.zeros((5, 3)), torch.ones((7, 3)), torch.ones(7), 1.0)
+    assert trace.counts() == {"kernels.m2l_separable.pairs": 3}
+    trace.reset()
