@@ -12,7 +12,9 @@ Phases; each raises on failure, so the script exits 0 only if all pass:
              at main-path shapes (msp_update bit for bit at n = 2^20;
              m2l_separable to 1e-5 x max|plain| at B = 2^21 and small B;
              gaussian_nbody at rtol 2e-5, atol 1e-6 at small shapes and, at
-             M = 2^20 sources, against a float64 sum), then timed (CUDA
+             M = 2^20 sources, against a float64 sum; synaptic_input bit
+             for bit at the sweep's K = 16 x 2^20 neurons, 64 slots a neuron,
+             against the plain version on the host), then timed (CUDA
              events; the short launches replayed from a CUDA graph) beside
              its bound;
 3. small   — each search method (fmm, barnes_hut, direct) at N = 256 on the
@@ -397,8 +399,57 @@ def phase_kernels(seed: int) -> dict:
     out["m2l_separable"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                 bound_by=by)
     del moms, herm, y, got, want
+    out["synaptic_input"] = check_synaptic_input(gen)
     out["gaussian_nbody"] = check_gaussian_nbody(seed, gen)
     return out
+
+
+def check_synaptic_input(gen: torch.Generator, k: int = 16, n: int = MAIN_N) -> dict:
+    """synaptic_input at the benchmark's steady shape: K = 16 tables of 64
+    slots a neuron, the live slots (32.5 M a table) in the lower half,
+    randomly holed, 1.4 % of neurons spiking, signs of an inhibitory share
+    {0, 5, 10, 15} %.  Bit for bit against the plain version, which runs on
+    the host one table at a time (the plain chain holds ~20 GB of
+    temporaries at this size), with and without signs; then timed (CUDA
+    events, whole calls: zeroing, packing, the pass) beside its bound."""
+    from repro_torch.core import synapses
+    from repro_torch.kernels import synaptic_input as ksyn
+    dev = torch.device("cuda")
+    e = 64 * n
+    src = torch.randint(0, n, (k, e), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n, (k, e), generator=gen, device=dev, dtype=torch.int32)
+    valid = torch.empty((k, e), device=dev).uniform_(0, 1, generator=gen) < 0.97
+    valid[:, e // 2:] = False
+    src.masked_fill_(~valid, 0)
+    dst.masked_fill_(~valid, 0)
+    spiked = torch.empty((k, n), device=dev).uniform_(0, 1, generator=gen) < 0.014
+    inh = torch.tensor([0.0, 0.05, 0.1, 0.15], device=dev).repeat(k // 4)[:, None]
+    sign = torch.where(torch.arange(n, device=dev) < inh * n, -1.0, 1.0)
+    host = synapses.SynapseState(src.cpu(), dst.cpu(), valid.cpu())
+    signs = (sign, None)
+    gots = [ksyn.synaptic_input_cuda(src, dst, valid, spiked, sg).cpu() for sg in signs]
+    t = time.perf_counter()
+    for got, sg in zip(gots, signs):
+        for r in range(k):
+            want = synapses.synaptic_input(synapses.SynapseState(*(f[r] for f in host)),
+                                           spiked[r].cpu(), None if sg is None else sg[r].cpu())
+            if not torch.equal(got[r], want):
+                raise AssertionError(f"synaptic_input kernel != plain in table {r} (sign "
+                                     f"{sg is not None}): {int((got[r] != want).sum())} of "
+                                     f"{n} differ")
+    plain_s = (time.perf_counter() - t) / 2
+    ms = event_ms(lambda: ksyn.synaptic_input_cuda(src, dst, valid, spiked, sign), 20)
+    live = int(valid.sum())
+    firing = int((valid & torch.gather(spiked, 1, src.long())).sum())
+    parts = dict(flags=k * e, src=4 * live, dst=4 * firing, neurons=k * n * (1 + 4 + 4))
+    bound = sum(parts.values()) / HBM_BYTES_PER_S * 1e3
+    log(f"[kernels] synaptic_input K={k} n={n} E={e}: {live} live slots, {firing} with a "
+        f"spiking source; bitwise equal to the plain version with and without signs; "
+        f"{ms:.4f} ms (bound {bound:.4f} ms, bytes: "
+        + ", ".join(f"{name} {b / 1e9:.3f} GB" for name, b in parts.items())
+        + f"), plain on the host {plain_s:.2f} s")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=None, plain_host_s=plain_s, bound_ms=bound,
+                bound_by="bytes")
 
 
 def check_gaussian_nbody(seed: int, gen: torch.Generator) -> dict:
@@ -526,7 +577,7 @@ def check_run(tag: str, st, syn: np.ndarray, interval: int, launches: dict,
             raise AssertionError(f"{tag}: non-finite {f}")
 
 
-KERNELS = ("msp_update", "m2l_separable", "gaussian_nbody")
+KERNELS = ("msp_update", "m2l_separable", "gaussian_nbody", "synaptic_input")
 _CENSUSES = []          # the census blocks running, innermost last
 
 
@@ -607,7 +658,8 @@ def phase_main(seed: int) -> dict:
         st2, _, _, _ = timed_run(eng, seed, steps)
     launches, tiers = c.launches, tier_census(c.counts)
     check_run("main", st, syn, interval, launches,
-              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0})
+              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0,
+               "synaptic_input": steps})
     for f in ("src", "dst", "valid"):
         if not torch.equal(getattr(st.edges, f), getattr(st2.edges, f)):
             raise AssertionError(f"two same-seed runs differ in the edge table ({f})")
@@ -848,7 +900,8 @@ def phase_bh(seed: int, fmm: dict) -> dict:
         st2, _, _, _ = timed_run(eng, seed, steps)
     launches = c.launches
     check_run("bh", st, syn, interval, launches,
-              {"msp_update": steps, "m2l_separable": 0, "gaussian_nbody": 0})
+              {"msp_update": steps, "m2l_separable": 0, "gaussian_nbody": 0,
+               "synaptic_input": steps})
     for f in ("src", "dst", "valid"):
         if not torch.equal(getattr(st.edges, f), getattr(st2.edges, f)):
             raise AssertionError(f"bh: two same-seed runs differ in the edge table ({f})")
@@ -892,7 +945,8 @@ def phase_direct(seed: int) -> dict:
     launches = c.launches
     peak = torch.cuda.max_memory_allocated()
     check_run("direct", st, syn, interval, launches,
-              {"msp_update": steps, "m2l_separable": 0, "gaussian_nbody": 0})
+              {"msp_update": steps, "m2l_separable": 0, "gaussian_nbody": 0,
+               "synaptic_input": steps})
     syn_u = syn[interval - 1::interval].tolist()
     log(f"[direct] n={n}: synapses after updates {syn_u}; launches {launches}; step "
         f"{np.mean(step_s) * 1e3:.3f} ms; connectivity update "
@@ -929,7 +983,8 @@ def phase_field(seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = c.launches
-    if launches != {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 1}:
+    if launches != {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 1,
+                    "synaptic_input": 0}:
         raise AssertionError(f"field: launches {launches}, expected one gaussian_nbody")
     if not bool(torch.isfinite(u).all()) or not bool((u > 0).all()):
         raise AssertionError("field: non-finite or non-positive attraction")
@@ -1008,7 +1063,8 @@ def phase_fig5(num_boxes: int = 500) -> dict:
         card, boxes = fig5_errors("cuda", num_boxes)
         wall = time.perf_counter() - t
     launches = c.launches
-    if launches != {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 2 * num_boxes}:
+    if launches != {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 2 * num_boxes,
+                    "synaptic_input": 0}:
         raise AssertionError(f"fig5: launches {launches}, expected {2 * num_boxes} "
                              f"gaussian_nbody")
     cpu, boxes_cpu = fig5_errors("cpu", num_boxes)
@@ -1080,7 +1136,7 @@ def phase_sweep(seed: int, main: dict) -> dict:
     launches = c.launches
     peak = torch.cuda.max_memory_allocated()
     check_launches("sweep", launches, {"msp_update": steps, "m2l_separable": None,
-                                       "gaussian_nbody": 0})
+                                       "gaussian_nbody": 0, "synaptic_input": steps})
     recs = [torch.cat(f) for f in zip(*recs)]
     if not (syn[interval - 1] > 0).all() or bool((states.dropped != 0).any()):
         raise AssertionError(f"sweep: synapses at the first update {syn[interval - 1]}, "
@@ -1180,7 +1236,8 @@ def phase_m2m(seed: int, main: dict) -> dict:
         st, syn, step_s, update_s = timed_run(eng, seed, steps)
     launches = c.launches
     check_run("m2m", st, syn, interval, launches,
-              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0})
+              {"msp_update": steps, "m2l_separable": None, "gaussian_nbody": 0,
+               "synaptic_input": steps})
     syn_u = syn[interval - 1::interval].tolist()
     log(f"[m2m] synapses after updates {syn_u} (segsum, phase 4: {main['syn']}); dropped "
         f"{int(st.dropped)}; launches {launches}")
@@ -1295,7 +1352,7 @@ def phase_probes(seed: int) -> dict:
         mgr.wait()                       # the checkpoints still being written
         probed_s = time.perf_counter() - t
         check_launches("probes", launches, {"msp_update": steps, "m2l_separable": None,
-                                            "gaussian_nbody": 0})
+                                            "gaussian_nbody": 0, "synaptic_input": steps})
         written = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp)
                       for f in fs)
         for f, x, y in zip(recs._fields, recs, want_rec):
@@ -1480,7 +1537,8 @@ def phase_serve(seed: int, sweep: dict) -> dict:
     if not any(reqs[sid].num_steps % SERVE_ROUND for sid in reqs):
         raise AssertionError("serve: no session finished mid-round")
     check_launches("serve", launches, {"msp_update": rounds * SERVE_ROUND,
-                                       "m2l_separable": None, "gaussian_nbody": 0})
+                                       "m2l_separable": None, "gaussian_nbody": 0,
+                                       "synaptic_input": rounds * SERVE_ROUND})
     for sid, res in results.items():
         syn = int(res.records.num_synapses[-1])
         if reqs[sid].num_steps >= 1500 and syn <= 0:
@@ -1710,7 +1768,7 @@ def phase_dist(seed: int, main: dict) -> dict:
     # m2l_separable launches once a connectivity update and valid level.
     m2l_per_update = main["launches"]["m2l_separable"] // (steps // interval)
     out = {"runs": {}}
-    launches = {"msp_update": 0, "m2l_separable": 0, "gaussian_nbody": 0}
+    launches = {k: 0 for k in KERNELS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
         group = mesh.CountingGroup(mesh.make_data_group(f"file://{tmp}/rendezvous", 0, 1,
                                                         "cuda"))
@@ -1739,7 +1797,7 @@ def phase_dist(seed: int, main: dict) -> dict:
                         deng, seed, steps, simulate=lambda s, k: deng.simulate(s, k, seed=seed))
                 run_launches = c.launches
                 check_launches(f"dist {tag}", run_launches, {
-                    "msp_update": steps, "gaussian_nbody": 0,
+                    "msp_update": steps, "gaussian_nbody": 0, "synaptic_input": steps,
                     "m2l_separable": m2l_per_update * (steps // interval) if method == "fmm"
                     else 0})
                 for k, v in run_launches.items():
@@ -3607,6 +3665,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import gaussian_nbody as knb, m2l_pair, msp_update as kmsp
+    from repro_torch.kernels import synaptic_input as ksyn
     # The plain versions use matmuls: keep them in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3666,12 +3725,15 @@ def main() -> int:
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f} s")
     log(f"[done] phases {','.join(PHASES)} passed in {time.perf_counter() - t0:.1f} s")
     print(card)
-    # Each kernel's launches on its path: the FMM main run for msp_update and
-    # m2l_separable, the field evaluation for gaussian_nbody.
+    # Each kernel's launches on its path: the FMM main run for msp_update,
+    # m2l_separable and synaptic_input, the field evaluation for
+    # gaussian_nbody.
     launches = {"msp_update": run["main"]["launches"]["msp_update"],
                 "m2l_separable": run["main"]["launches"]["m2l_separable"],
-                "gaussian_nbody": run["field"]["launches"]["gaussian_nbody"]}
-    modules = {"msp_update": kmsp, "m2l_separable": m2l_pair, "gaussian_nbody": knb}
+                "gaussian_nbody": run["field"]["launches"]["gaussian_nbody"],
+                "synaptic_input": run["main"]["launches"]["synaptic_input"]}
+    modules = {"msp_update": kmsp, "m2l_separable": m2l_pair, "gaussian_nbody": knb,
+               "synaptic_input": ksyn}
     kernels = [dict(name=name, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
                     launches=launches[name], library_ms=None, **run["kernels"][name])
                for name, mod in modules.items()]
@@ -3681,7 +3743,7 @@ def main() -> int:
     # And both on the serve phase's path and the distributed engine's (its
     # four runs at world size 1); m2l_separable also in the emulated p-rank
     # descents.
-    for k in kernels[:2]:
+    for k in kernels[:2] + kernels[3:]:
         k["serve_launches"] = run["serve"]["launches"][k["name"]]
         k["dist_launches"] = run["dist"]["launches"][k["name"]]
         k["sweep2d_launches"] = run["sweep2d"]["launches"][k["name"]]

@@ -20,7 +20,9 @@ remove and place (`repro_torch.trace`).
 The table has 64 slots per neuron and holds few synapses, and every free
 slot points at neuron 0: the reductions first compact the slots that
 contribute, so that free slots neither cost a pass of atomics nor pile onto
-one address.
+one address.  On the card spike propagation is one kernel pass instead
+(`kernels/synaptic_input.py`), which reads a slot's ids only where its flag
+is set.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import trace
+from repro_torch.kernels import ops
 
 
 def det_sum(vals: torch.Tensor) -> torch.Tensor:
@@ -77,7 +80,12 @@ def synaptic_input(state: SynapseState, spiked: torch.Tensor,
     The tables may carry leading axes, (..., E) with spikes (..., n): an
     ensemble's K tables are then summed in one pass, each slot's neuron ids
     offset by its table's row.  sign: optional +1/-1 per presynaptic neuron,
-    (..., n) (None = all excitatory, the paper's setting)."""
+    (..., n) (None = all excitatory, the paper's setting).
+
+    On the card this is one kernel (`kernels.ops.synaptic_input`); the body
+    below is its plain version, which the CPU runs."""
+    if spiked.device.type != "cpu":
+        return ops.synaptic_input(state, spiked, sign)
     n = spiked.shape[-1]
     slots = torch.nonzero(state.valid.reshape(-1)).squeeze(1)
     src = state.src.reshape(-1)[slots]

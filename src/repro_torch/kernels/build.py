@@ -27,11 +27,12 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_F = ctypes.c_float
+_F, _L = ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "msp_update_launch": [_P] * 9 + [_I] + [_F] * 6 + [_I, _P],
     "m2l_separable_launch": [_P] * 4 + [_I, _P],
     "gaussian_nbody_launch": [_P] * 4 + [_I, _I, _F, _P],
+    "synaptic_input_launch": [_P] * 7 + [_L, _L, _I, _P],
 }
 
 

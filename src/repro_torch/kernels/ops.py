@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.kernels import gaussian_nbody as _nbody, m2l_pair, msp_update as _msp
+from repro_torch.kernels import synaptic_input as _syn
 
 
 def msp_update(x, refrac, calcium, syn_input, uniform, cfg):
@@ -49,4 +50,22 @@ def gaussian_nbody(targets: torch.Tensor, sources: torch.Tensor,
     out = _nbody.gaussian_nbody_cuda(targets, sources, weights, delta)
     if targets.shape[0]:
         trace.count("kernels.gaussian_nbody.launches", 1)
+    return out
+
+
+def synaptic_input(edges, spiked: torch.Tensor, sign: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., n) signed count of spiking presynaptic partners.  edges:
+    repro_torch.core.synapses.SynapseState over (..., E) slots; spiked and
+    sign (None = all +1): (..., n)."""
+    if spiked.device.type == "cpu":
+        # The plain version is the edge store's own; that module imports this one.
+        from repro_torch.core import synapses
+        return synapses.synaptic_input(edges, spiked, sign)
+    # The kernel reads rows in place; the plain version takes any strides, so
+    # a view (the distributed engine gathers spikes along dim 1) is copied
+    # here once.
+    out = _syn.synaptic_input_cuda(*(t.contiguous() for t in (*edges, spiked)),
+                                   None if sign is None else sign.contiguous())
+    if edges.valid.numel() and spiked.shape[-1]:
+        trace.count("kernels.synaptic_input.launches", 1)
     return out

@@ -14,14 +14,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import trace
+from repro_torch.core import synapses
 from repro_torch.core.engine import EngineConfig, PlasticityEngine
 from repro_torch.core.msp import MSPConfig
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.traversal import FMMConfig
 from repro_torch.kernels import gaussian_nbody as knb, m2l_pair, msp_update as kmsp, ops
+from repro_torch.kernels import synaptic_input as ksyn
+
+import _synaptic_tables
 
 
-KERNELS = ("msp_update", "m2l_separable", "gaussian_nbody")
+KERNELS = ("msp_update", "m2l_separable", "gaussian_nbody", "synaptic_input")
 
 
 def _launches(fn):
@@ -129,6 +133,81 @@ def test_gaussian_nbody_wrapper_rejects_what_the_kernel_does_not_take(cuda_devic
         knb.gaussian_nbody_cuda(z, z, w[:4], 1.0)
 
 
+def _on(dev, edges, spiked, sign, offsets=(0, 0, 0)):
+    """The case's tensors on dev; offsets: each table array (src, dst,
+    valid) laid out from that many elements into a buffer of its own, so
+    its first slot sits off the allocator's alignment."""
+    parts = []
+    for a, off in zip(edges, offsets):
+        t = torch.from_numpy(a)
+        buf = torch.empty((t.numel() + off,), dtype=t.dtype, device=dev)
+        view = buf[off:].view(t.shape)
+        view.copy_(t)
+        parts.append(view)
+    to = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    return synapses.SynapseState(*parts), to(spiked), to(sign)
+
+
+SYN_N = 1 << 16
+SYN_CASES = {
+    # name: (tables(...) arguments, offsets of src, dst, valid)
+    "one_table": (dict(lead=(), n=SYN_N, e=64 * SYN_N), (0, 0, 0)),
+    "four_tables": (dict(lead=(4,), n=SYN_N, e=64 * SYN_N), (0, 0, 0)),
+    "four_ragged_tables": (dict(lead=(4,), n=SYN_N, e=64 * SYN_N + 7), (0, 0, 0)),
+    # One rank's range of a table: its first slot 1029 slots in, 16 k + 7 long.
+    "misaligned_range": (dict(lead=(), n=SYN_N, e=16 * SYN_N + 7), (1029, 1029, 1029)),
+    "four_misaligned_tables": (dict(lead=(4,), n=SYN_N, e=64 * SYN_N), (3, 3, 3)),
+    # Flags and ids that never share their 16-byte alignment: scalar slots only.
+    "unaligned_ids": (dict(lead=(2,), n=SYN_N, e=64 * SYN_N), (5, 0, 3)),
+    # 2^21 + 5 neurons a row: 256 KB of bits, more than a block's shared memory.
+    "bits_beyond_shared_memory": (dict(lead=(2,), n=(1 << 21) + 5, e=1 << 18), (0, 0, 0)),
+    # Spikes and signs as views with strides (the distributed ensemble
+    # gathers its spikes along dim 1).
+    "strided_spikes": (dict(lead=(4,), n=SYN_N, e=64 * SYN_N), (0, 0, 0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("case", sorted(SYN_CASES))
+def test_synaptic_input_kernel_bitwise_vs_plain(cuda_device, case, signed):
+    """The kernel (through `synapses.synaptic_input` on the card, one launch)
+    equals the plain version on the CPU bit for bit: tables 48 % live in
+    their lower half, randomly holed, 1.4 % of neurons spiking."""
+    kw, offsets = SYN_CASES[case]
+    src, dst, valid, spiked, sign = _synaptic_tables.tables(
+        len(case) + signed, spiking=0.014, signed=signed, **kw)
+    edges, sp, sg = _on(cuda_device, (src, dst, valid), spiked, sign, offsets)
+    if case == "strided_spikes":
+        sp = sp.T.contiguous().T
+        sg = None if sg is None else sg.T.contiguous().T
+        assert not sp.is_contiguous()
+    got, launches = _launches(lambda: synapses.synaptic_input(edges, sp, sg))
+    cpu = _on(torch.device("cpu"), (src, dst, valid), spiked, sign)
+    want = synapses.synaptic_input(*cpu)
+    torch.cuda.synchronize()
+    assert launches["synaptic_input"] == 1
+    assert int(want.abs().sum()) > 0
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_synaptic_input_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    src, dst, valid, spiked, sign = _synaptic_tables.tables(0, (2,), 64, 256, signed=True)
+    edges, sp, sg = _on(cuda_device, (src, dst, valid), spiked, sign)
+    run = lambda e=edges, s=sp, g=sg: ksyn.synaptic_input_cuda(*e, s, g)
+    for bad in (dict(e=edges._replace(src=edges.src.long())),
+                dict(e=synapses.SynapseState(*(f[:, :255] for f in edges))),
+                dict(s=sp[:1]), dict(s=sp.int()), dict(g=sg[:, :63]), dict(g=sg.double()),
+                dict(e=synapses.SynapseState(*(f.cpu() for f in edges)))):
+        with pytest.raises(ValueError):
+            run(**bad)
+    with pytest.raises(ValueError):
+        ksyn.synaptic_input_cuda(*(f.cpu() for f in edges), sp.cpu(), None)
+    empty = synapses.SynapseState(*(f[:, :0] for f in edges))
+    assert torch.equal(ksyn.synaptic_input_cuda(*empty, sp, sg), torch.zeros_like(sg))
+
+
 class _CpuDraws:
     """GeneratorNoise drawn on the CPU and moved to the card, so the card's
     run and the CPU's run see the same numbers."""
@@ -161,6 +240,7 @@ def test_main_path_on_card_equals_plain_versions_on_cpu(cuda_device):
     (sg, rg), launches = out["cuda"]
     (sc, rc), _ = out["cpu"]
     assert launches["msp_update"] == 300 and launches["m2l_separable"] > 0
+    assert launches["synaptic_input"] == 300
     assert int(rc.num_synapses[-1]) > 0
     assert torch.equal(rg.num_synapses.cpu(), rc.num_synapses)
     assert torch.equal(rg.spike_rate.cpu(), rc.spike_rate)
@@ -188,7 +268,8 @@ def test_other_methods_on_card_equal_plain_versions_on_cpu(cuda_device, method):
         out[dev.type] = _launches(lambda: eng.simulate(st, 300, noise=_CpuDraws(1, dev)))
     (sg, rg), launches = out["cuda"]
     (sc, rc), _ = out["cpu"]
-    assert launches == {"msp_update": 300, "m2l_separable": 0, "gaussian_nbody": 0}
+    assert launches == {"msp_update": 300, "m2l_separable": 0, "gaussian_nbody": 0,
+                        "synaptic_input": 300}
     assert int(rc.num_synapses[-1]) > 0
     assert torch.equal(rg.num_synapses.cpu(), rc.num_synapses)
     assert torch.equal(rg.spike_rate.cpu(), rc.spike_rate)
@@ -284,9 +365,11 @@ def _serve(device, pool=64):
 def test_served_traffic_on_card_equals_cpu(cuda_device):
     """Every session of the served traffic: the card (kernels) and the CPU
     (plain versions) give the same records, final state and probe rows, bit
-    for bit; the card's run went through msp_update."""
+    for bit; the card's run went through msp_update and synaptic_input, once
+    a round each."""
     (card_events, card), launches = _launches(lambda: _serve(cuda_device))
     assert launches["msp_update"] > 0
+    assert launches["synaptic_input"] == launches["msp_update"]
     cpu_events, cpu = _serve("cpu")
     assert card_events == cpu_events and any(e.startswith("restored") for e in cpu_events)
     for sid, want in cpu.items():

@@ -22,8 +22,10 @@ from repro.core import msp as jmsp
 from repro.core import synapses as jsyn
 from repro.kernels import ref
 from repro_torch import trace
-from repro_torch.core import msp
+from repro_torch.core import msp, synapses
 from repro_torch.kernels import msp_update as kmsp, ops
+
+import _synaptic_tables
 
 CONFIGS = {"paper": msp.MSPConfig.paper(),
            "calibrated": msp.MSPConfig.calibrated(speedup=100.0)}
@@ -173,5 +175,48 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         z = torch.zeros((3, 64))
         ops.m2l_separable(z, z, torch.zeros((3, 3)))
         ops.gaussian_nbody(torch.zeros((5, 3)), torch.ones((7, 3)), torch.ones(7), 1.0)
+        edges = synapses.empty(64, torch.device("cpu"))
+        ops.synaptic_input(edges._replace(valid=torch.ones(64, dtype=torch.bool)),
+                           torch.ones(4, dtype=torch.bool))
     assert trace.counts() == {"kernels.m2l_separable.pairs": 3}
     trace.reset()
+
+
+def _syn_case(case):
+    """(edges, spiked, sign) of one spike-propagation case, as tensors."""
+    t = _synaptic_tables.tables
+    arrays = {
+        "table": lambda: t(1, (), 200, 64 * 200),
+        "table_signed": lambda: t(2, (), 200, 64 * 200, signed=True),
+        "tables": lambda: t(3, (3,), 150, 64 * 150),
+        "tables_signed": lambda: t(4, (3,), 150, 64 * 150, signed=True),
+        "empty_table": lambda: t(5, (2,), 50, 0),
+        "every_slot_valid": lambda: t(6, (2,), 40, 8 * 40, live=1.0, signed=True),
+        # Neuron 0 spikes; the free slots' ids (0, 0) must add nothing.
+        "free_slots_at_neuron_0": lambda: t(7, (), 100, 64 * 100, live=0.1, spiking=1.0),
+        "ragged_range": lambda: t(8, (), 120, 64 * 120, signed=True),
+    }[case]()
+    src, dst, valid, spiked, sign = (None if a is None else torch.from_numpy(a)
+                                     for a in arrays)
+    edges = synapses.SynapseState(src, dst, valid)
+    if case == "ragged_range":       # one rank's slot range: 16 k + 7 slots, odd start
+        edges = synapses.SynapseState(*(f[1029:1029 + 16 * 150 + 7] for f in edges))
+    return edges, spiked, sign
+
+
+@pytest.mark.parametrize("case", ["table", "table_signed", "tables", "tables_signed",
+                                  "empty_table", "every_slot_valid",
+                                  "free_slots_at_neuron_0", "ragged_range"])
+def test_synaptic_input_plain_cases(case):
+    """The plain version (what the CPU runs) against a numpy loop over each
+    table row, exactly: every term is +-1."""
+    edges, spiked, sign = _syn_case(case)
+    want = _synaptic_tables.synaptic_input(
+        *(f.numpy() for f in edges), spiked.numpy(), None if sign is None else sign.numpy())
+    got = synapses.synaptic_input(edges, spiked, sign)
+    assert got.dtype == torch.float32 and got.shape == spiked.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "free_slots_at_neuron_0":
+        assert int((~edges.valid).sum()) > 0 and bool(spiked[0])
+    if case == "every_slot_valid":
+        assert bool(edges.valid.all())
