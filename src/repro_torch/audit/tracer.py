@@ -500,11 +500,17 @@ class SpawnedAudit:
                        else build_distributed(groups, deletion, **combo))
                 trace = record(run)
                 found.extend(audit_trace(label, trace, _resolve(rule_cfgs, deletion)))
-                if deletion and not any(c.excess and c.kind == "gather"
-                                        and c.elements >= _edge_table(deletion)
-                                        for c in trace.collectives):
-                    found.append(Finding("R3", label, "the forced deletion gathered no edge "
-                                         "table in an update with excess: R3 saw nothing"))
+                if deletion and not any(c.excess for c in trace.collectives):
+                    found.append(Finding("R3", label, "the forced deletion ran no update "
+                                         "with excess: R3 saw nothing"))
+                if deletion:
+                    # The sharded deletion ranks in place over the slot
+                    # ranges: the table never leaves its ranks, excess or not.
+                    found.extend(Finding("R3", label, f"a {c.elements}-element gather in "
+                                         "the sharded deletion: the edge table left its ranks",
+                                         " > ".join(c.frames[-3:]))
+                                 for c in trace.collectives
+                                 if c.kind == "gather" and c.elements >= _edge_table(deletion))
                 names.append(label)
         every = groups.data.gather_objects(found)
         return dict(findings=[f for part in every for f in part], entries=names)

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.core import barnes_hut, msp, octree, synapses, traversal
 from repro_torch.core import multi_index as mi
 from repro_torch.core import noise as _noise
@@ -73,6 +74,10 @@ from repro_torch.core.msp import MSPConfig, NeuronState
 from repro_torch.core.synapses import SynapseState
 from repro_torch.core.traversal import FMMConfig
 from repro_torch.sharding import rules
+
+
+# Elements of one routed-exchange payload at most (`_routed_pyramid`).
+EXCHANGE_ELEMENTS = 1 << 28
 
 
 def _merge_packed(group, raw: tuple) -> tuple:
@@ -91,8 +96,10 @@ def sorted_positions(positions: np.ndarray, engine_cfg: EngineConfig) -> np.ndar
     """The positions in Morton order at the engine's octree depth: the order
     the distributed engine keeps them in (its `positions_np`), and the one
     a single-device run must use to equal it."""
-    positions = np.asarray(positions, np.float32)
-    return positions[octree.build_structure(positions, engine_cfg.domain, engine_cfg.depth).order]
+    positions = np.ascontiguousarray(positions, np.float32)
+    order = octree.build_structure(positions, engine_cfg.domain, engine_cfg.depth).order
+    # The rows gathered on the host's threads (numpy's gather is one thread).
+    return torch.from_numpy(positions).index_select(0, torch.from_numpy(order).long()).numpy()
 
 
 class DistributedPlasticityEngine(PlasticityEngine):
@@ -140,6 +147,9 @@ class DistributedPlasticityEngine(PlasticityEngine):
             raise ValueError("pyramid_exchange='routed' requires method='fmm', "
                              "find_phase='sharded' and pyramid_partials='owner_span'")
         self.pyramid_partials = pyramid_partials
+        # The owner-span build reads its own span tables, never the whole
+        # levels' run tables.
+        self._level_runs = pyramid_partials == "masked"
         self.find_phase = find_phase
         self.pyramid_exchange = pyramid_exchange
         super().__init__(sorted_positions(positions, engine_cfg), msp_cfg, fmm_cfg, engine_cfg,
@@ -227,8 +237,9 @@ class DistributedPlasticityEngine(PlasticityEngine):
         occupied source boxes scored, levels 1..depth; descended rows for
         Barnes-Hut), resolution_rows, conflict_rows, payload_elems (elements
         entering the update's collectives, without the pyramid exchange) and
-        payload_elems_deletion_path (the sharded phase's rare edge-table
-        gather)."""
+        payload_elems_deletion_path (the reference's rare edge-table gather
+        on the deletion path; the port's sharded deletion moves only the
+        ranked candidates' keys, `synapses.delete_excess_span`)."""
         mode = self.find_phase if find_phase is None else find_phase
         s = self.structure
         bh = self.engine_cfg.method == "barnes_hut"
@@ -305,17 +316,23 @@ class DistributedPlasticityEngine(PlasticityEngine):
             den_w_r, _, den_pos_r, _, herm_r, _ = raws[level]
             occ_ids, owner = self._routed[level]                       # (p, w), (8^l,)
             tc = (torch.clamp(tgt_prev[occ_ids >> 3], min=0)[..., None] << 3) + arange8
-            payload = torch.cat([den_w_r[tc][..., None], den_pos_r[tc], herm_r[tc]], dim=-1)
-            payload = torch.where((owner[tc] == self.rank)[..., None], payload, 0.0)
-            got = self.group.scatter_sum(payload).reshape(-1, payload.shape[-1])
-            den_w = got[:, 0]
-            idx = tc[self.rank].reshape(-1)
-            # Rows requested twice carry the same values.
-            put = lambda t, v: t.clone().index_put_((idx,), v)
-            return base._replace(
-                den_w=put(base.den_w, den_w),
-                den_c=put(base.den_c, got[:, 1:4] / torch.clamp(den_w, min=1e-30)[:, None]),
-                herm=put(base.herm, got[:, 4:] / fact))
+            den_w, den_c, herm = base.den_w.clone(), base.den_c.clone(), base.herm.clone()
+            # In blocks of source boxes, alike on every rank (w is the
+            # level's widest span): the (p, block, 8, 4 + k) payload stays
+            # bounded however many boxes a rank owns.
+            block = max(1, EXCHANGE_ELEMENTS // (tc.shape[0] * 8 * (4 + herm_r.shape[-1])))
+            for a in range(0, tc.shape[1], block):
+                tb = tc[:, a:a + block]
+                payload = torch.cat([den_w_r[tb][..., None], den_pos_r[tb], herm_r[tb]], dim=-1)
+                payload = torch.where((owner[tb] == self.rank)[..., None], payload, 0.0)
+                got = self.group.scatter_sum(payload).reshape(-1, payload.shape[-1])
+                idx = tb[self.rank].reshape(-1)
+                trace.count("dist.exchange.rows", idx.shape[0])
+                # Rows requested twice carry the same values.
+                den_w.index_put_((idx,), got[:, 0])
+                den_c.index_put_((idx,), got[:, 1:4] / torch.clamp(got[:, 0], min=1e-30)[:, None])
+                herm.index_put_((idx,), got[:, 4:] / fact)
+            return base._replace(den_w=den_w, den_c=den_c, herm=herm)
 
         return levels, level_data_fn
 
@@ -327,9 +344,11 @@ class DistributedPlasticityEngine(PlasticityEngine):
         `step` (collective: every rank calls it at the same step)."""
         if n_active is not None:
             raise ValueError("the distributed engine has no padded state (n_active)")
-        if self.find_phase == "sharded":
-            return self._update_sharded(state, noise, step, params)
-        return self._update_replicated(state, noise, step, params)
+        with record_function("update.connectivity"):
+            trace.count("update.networks", 1)
+            if self.find_phase == "sharded":
+                return self._update_sharded(state, noise, step, params)
+            return self._update_replicated(state, noise, step, params)
 
     def _find_partners(self, ax_vac, den_vac, cfg: FMMConfig, noise, step: int):
         """The replicated find phase's search: the merged pyramid, then the
@@ -358,11 +377,11 @@ class DistributedPlasticityEngine(PlasticityEngine):
 
     def _update_sharded(self, state: SimState, noise, step: int,
                         params: Optional[KernelParams]) -> SimState:
-        """The sharded find phase: degrees by integer merges (the edge table
-        is gathered only when some neuron has excess, a replicated
-        predicate), the owner-span descent and this rank's leaf rows, the
-        request exchange (the (n,) partners), the splitter-merged conflict
-        resolution and the slot-range commit."""
+        """The sharded find phase: degrees by integer merges, the deletion
+        ranked in place over the slot ranges (`synapses.delete_excess_span`:
+        the table never leaves its ranks), the owner-span descent and this
+        rank's leaf rows, the request exchange (the (n,) partners), the
+        splitter-merged conflict resolution and the slot-range commit."""
         g, n = self.group, self.n
         lo, hi = self.row_range
         rows_all = self.rows
@@ -372,13 +391,11 @@ class DistributedPlasticityEngine(PlasticityEngine):
             den_el = g.gather(state.neurons.den_elems)
             ax_fl, den_fl = torch.floor(ax_el).to(torch.int32), torch.floor(den_el).to(torch.int32)
             deg = lambda ids, valid: g.merge(synapses._count(ids, valid, n))
-            excess = ((deg(edges.src, edges.valid) > ax_fl).any()
-                      | (deg(edges.dst, edges.valid) > den_fl).any())
-            if bool(excess):
-                whole = synapses.delete_excess(SynapseState(*(g.gather(t) for t in edges)),
-                                               ax_el, den_el, noise, step)
-                e_lo, e_hi = self.slot_range
-                edges = edges._replace(valid=whole.valid[e_lo:e_hi])
+            edges = synapses.delete_excess_span(
+                edges, torch.clamp(deg(edges.src, edges.valid) - ax_fl, min=0),
+                torch.clamp(deg(edges.dst, edges.valid) - den_fl, min=0), noise, step,
+                slot_lo=self.slot_range[0], capacity=self.edge_capacity, rank=self.rank,
+                gather=g.gather)
         with record_function("update.vacancies"):
             ax_vac = torch.clamp(ax_fl - deg(edges.src, edges.valid), min=0).to(torch.float32)
             den_vac = torch.clamp(den_fl - deg(edges.dst, edges.valid), min=0).to(torch.float32)
@@ -393,11 +410,13 @@ class DistributedPlasticityEngine(PlasticityEngine):
                 self.tree, self._spans, self.rank, levels, self.positions, ax_vac, den_vac,
                 cfg, noise, step, g.merge, row_start=lo, row_count=hi - lo,
                 level_data_fn=level_fn)
+            del level_fn
         else:
             levels = self._pyramid(ax_vac, den_vac, cfg)
             partner_l = barnes_hut.find_partners_bh(
                 self.tree, levels, self.positions, ax_vac, den_vac, cfg, noise, step,
                 row_start=lo, row_count=hi - lo)
+        del levels                  # the pyramid is not needed past the search
         with record_function("update.conflicts_insert"):
             req_l = torch.clamp(ax_vac[lo:hi].to(torch.int32),
                                 max=self.engine_cfg.max_requests_per_neuron)
@@ -463,7 +482,9 @@ class DistributedPlasticityEngine(PlasticityEngine):
                                                neurons.spiked.to(torch.float32)], dim=-1), 1)
         spiked_g = obs[..., 1] > 0
         if nsyn is None or do_update:
-            nsyn = g.merge(states.edges.valid.sum(dim=-1, dtype=torch.int32))
+            # int64: a network's synapses can pass 2^31 (each rank's count
+            # fits an int32, their sum need not).
+            nsyn = g.merge(states.edges.valid.sum(dim=-1, dtype=torch.int64))
         return states, records(obs[..., 0].contiguous(), spiked_g, nsyn), spiked_g, nsyn
 
     def _run_block(self, states: SimState, num_steps: int, noises, rows, signs, probes=None,
@@ -698,8 +719,9 @@ AUDIT = {
                 "R4": {"allowlist": (_SYNAPTIC_INPUT,)},
             },
         },
-        # The sharded find phase's rare edge-table gather, driven by an
-        # excess on both sides (tests/test_probes.py's forced deletion).
+        # The sharded find phase's deletion, driven by an excess on both
+        # sides (tests/test_probes.py's forced deletion): ranked over the
+        # slot ranges, with no edge-table gather.
         "distributed.forced_deletion": {
             "rules": {
                 "R2": {"allowed_groups": ("data",)},

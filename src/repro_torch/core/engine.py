@@ -212,6 +212,10 @@ class PlasticityEngine:
     """Owns the static structure on its device; state flows through plain
     functions."""
 
+    # Whether the device tree carries every level's run tables (an engine
+    # that sums owner spans alone does without them: `octree.to_device`).
+    _level_runs = True
+
     def __init__(self, positions: np.ndarray,
                  msp_cfg: MSPConfig = MSPConfig(),
                  fmm_cfg: FMMConfig = FMMConfig(),
@@ -225,7 +229,7 @@ class PlasticityEngine:
         self.engine_cfg = engine_cfg
         self.structure = octree.build_structure(
             self.positions_np, engine_cfg.domain, engine_cfg.depth)
-        self.tree = octree.to_device(self.structure, self.device)
+        self.tree = octree.to_device(self.structure, self.device, runs=self._level_runs)
         self.positions = torch.as_tensor(self.positions_np, device=self.device)
         self.rows = torch.arange(self.n, dtype=torch.int64, device=self.device)
         self._prefixes = {}

@@ -108,12 +108,17 @@ def replica_block(group, num_replicas: int) -> tuple:
 
 def gather_records(group, recs: StepRecord) -> StepRecord:
     """(T, K/e) records of every ensemble coordinate -> (T, K) in replica
-    order, in one gather (the float fields travel as their int32 bits)."""
+    order, in one gather (every field travels as its int32 words: one for a
+    float32, two for the distributed engine's int64 synapse count)."""
     if group is None:
         return recs
-    bits = torch.stack([f.view(torch.int32) for f in recs], dim=-1)      # (T, k, 4)
-    got = rules.gather_dim(group, bits, 1)
-    return StepRecord(*(got[..., i].contiguous().view(f.dtype) for i, f in enumerate(recs)))
+    words = [f.contiguous().view(torch.int32).reshape(f.shape + (-1,)) for f in recs]
+    got = rules.gather_dim(group, torch.cat(words, dim=-1), 1)            # (T, K, words)
+    out, at = [], 0
+    for f, w in zip(recs, words):
+        out.append(got[..., at:at + w.shape[-1]].contiguous().view(f.dtype)[..., 0])
+        at += w.shape[-1]
+    return StepRecord(*out)
 
 
 def step_slots(engine: PlasticityEngine, states: SimState, noises: Sequence,

@@ -104,6 +104,15 @@ def sliced(noise, draw, idx: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     return draw(idx)[lo:hi]
 
 
+def picked(noise, draw, total: int, at: torch.Tensor) -> torch.Tensor:
+    """draw(arange(total))[at]: the values at the indices `at` of a draw over
+    [0, total).  A noise keyed by index draws those alone; any other draws
+    the whole range and picks from it."""
+    if getattr(noise, "keyed", False):
+        return draw(at)
+    return draw(torch.arange(total, dtype=torch.int64, device=at.device))[at]
+
+
 def for_config(rng: str, seed: int, device):
     """The default draw source of `EngineConfig.rng`: a `GeneratorNoise`
     ("batched") or a `CounterNoise` ("counter") seeded from `seed`."""

@@ -57,22 +57,49 @@ def _spread_bits(v: np.ndarray) -> np.ndarray:
     return v
 
 
+# _spread_bits of every byte: a coordinate spreads a byte at a time.
+_SPREAD_BYTE = torch.from_numpy(_spread_bits(np.arange(256, dtype=np.uint64)).astype(np.int64))
+
+
+def _spread_bits_fast(v: torch.Tensor) -> torch.Tensor:
+    """`_spread_bits` by table, a byte at a time (the same bits), in int64
+    on the host's threads (21 spread bits stay below bit 63)."""
+    v = v & 0x1FFFFF
+    out = _SPREAD_BYTE[v & 0xFF]
+    top = int(v.max()) if v.numel() else 0
+    if top >> 8:
+        out |= _SPREAD_BYTE[(v >> 8) & 0xFF] << 24
+    if top >> 16:
+        out |= _SPREAD_BYTE[v >> 16] << 48
+    return out
+
+
 def morton_encode(cells: np.ndarray) -> np.ndarray:
     """Interleave (x, y, z) integer cell coords -> Morton codes.  (N,3)->(N,)."""
-    return (_spread_bits(cells[:, 0])
-            | (_spread_bits(cells[:, 1]) << np.uint64(1))
-            | (_spread_bits(cells[:, 2]) << np.uint64(2))).astype(np.int64)
+    c = torch.from_numpy(np.ascontiguousarray(cells, dtype=np.int64))
+    return (_spread_bits_fast(c[:, 0]) | (_spread_bits_fast(c[:, 1]) << 1)
+            | (_spread_bits_fast(c[:, 2]) << 2)).numpy()
 
 
-def _compact_bits(v: np.ndarray) -> np.ndarray:
-    """Inverse of _spread_bits: keep every third bit (Morton decode helper)."""
-    v = v.astype(np.uint64) & np.uint64(0x1249249249249249)
-    v = (v ^ (v >> np.uint64(2))) & np.uint64(0x10C30C30C30C30C3)
-    v = (v ^ (v >> np.uint64(4))) & np.uint64(0x100F00F00F00F00F)
-    v = (v ^ (v >> np.uint64(8))) & np.uint64(0x1F0000FF0000FF)
-    v = (v ^ (v >> np.uint64(16))) & np.uint64(0x1F00000000FFFF)
-    v = (v ^ (v >> np.uint64(32))) & np.uint64(0x1FFFFF)
-    return v.astype(np.int64)
+# The (x, y, z) bits of a box's child index c = id & 7 (x is the lowest).
+_CHILD_BITS = np.stack([(np.arange(8) >> d) & 1 for d in range(3)], axis=1).astype(np.int64)
+
+
+def _box_cells(level: int) -> np.ndarray:
+    """(8^l, 3) int64 integer cell of every box id at `level`: the Morton
+    decode of the ids, built a level at a time (child 8b + c sits in cell
+    2 cell(b) + the bits of c)."""
+    cells = np.zeros((1, 3), np.int64)
+    for _ in range(level):
+        cells = (2 * cells[:, None, :] + _CHILD_BITS[None, :, :]).reshape(-1, 3)
+    return cells
+
+
+def _stable_argsort(codes: np.ndarray) -> np.ndarray:
+    """`np.argsort(codes, kind='stable')` by torch's stable sort on the
+    host's threads: the same permutation (a stable order is unique), in a
+    fraction of the time at tens of millions of neurons."""
+    return torch.sort(torch.from_numpy(np.ascontiguousarray(codes)), stable=True).indices.numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,17 +130,21 @@ class OctreeStructure:
         return self.domain / (2 ** level)
 
     def occupied_at(self, level: int) -> np.ndarray:
-        """Sorted ids of the boxes that hold at least one neuron."""
-        return np.unique(self.box_of(level))
+        """Sorted ids of the boxes that hold at least one neuron (from the
+        leaf offsets: a box's run is non-empty)."""
+        counts = np.diff(self.leaf_start[::8 ** (self.depth - level)])
+        return np.flatnonzero(counts).astype(np.int32)
+
+    def run_width(self, level: int) -> int:
+        """The longest run of a box at `level` (at least 1): the width of
+        the level's run table."""
+        return max(int(np.diff(self.leaf_start[::8 ** (self.depth - level)]).max()), 1)
 
     def centers_at(self, level: int) -> np.ndarray:
         """Static geometric centers of all boxes at `level`, shape (8^l, 3):
         the expansion origins (data-independent, unlike mass centroids)."""
-        b = self.boxes_at(level)
-        ids = np.arange(b, dtype=np.int64)
-        cells = np.stack([_compact_bits(ids >> d) for d in range(3)], axis=1)
         side = self.box_side(level)
-        return ((cells + 0.5) * side).astype(np.float32)
+        return ((_box_cells(level) + 0.5) * side).astype(np.float32)
 
 
 def build_structure(positions: np.ndarray, domain: float,
@@ -128,13 +159,21 @@ def build_structure(positions: np.ndarray, domain: float,
     cells = np.clip((positions / domain * (2 ** depth)).astype(np.int64),
                     0, 2 ** depth - 1)
     codes = morton_encode(cells)
-    order = np.argsort(codes, kind='stable').astype(np.int32)
-    inv_order = np.empty_like(order)
-    inv_order[order] = np.arange(n, dtype=np.int32)
-    sorted_codes = codes[order]
+    if not np.any(codes[1:] < codes[:-1]):
+        # Sorted already (the distributed engine's positions): the stable
+        # order is the identity.
+        order = np.arange(n, dtype=np.int32)
+        inv_order = order.copy()
+    else:
+        order = _stable_argsort(codes).astype(np.int32)
+        inv_order = np.empty_like(order)
+        torch.from_numpy(inv_order).index_put_((torch.from_numpy(order).long(),),
+                                               torch.arange(n, dtype=torch.int32))
     num_leaves = 8 ** depth
-    leaf_start = np.searchsorted(sorted_codes, np.arange(num_leaves + 1),
-                                 side='left').astype(np.int32)
+    # leaf_start[i]: the codes below i, from the leaf counts.
+    leaf_start = np.zeros((num_leaves + 1,), np.int64)
+    np.cumsum(np.bincount(codes, minlength=num_leaves), out=leaf_start[1:])
+    leaf_start = leaf_start.astype(np.int32)
     occupancy = np.diff(leaf_start)
     return OctreeStructure(
         depth=depth, domain=float(domain), n=n, codes=codes,  # audit: ok (host config)
@@ -161,24 +200,31 @@ class OctreeTensors(NamedTuple):
     levels: List[LevelLayout]
 
 
-def to_device(structure: OctreeStructure, device: torch.device) -> OctreeTensors:
-    """Move the static tables of every level to `device`."""
+def to_device(structure: OctreeStructure, device: torch.device,
+              runs: bool = True) -> OctreeTensors:
+    """Move the static tables of every level to `device`.  runs=False keeps
+    each level's `runs` and `box_sorted` empty ((0, width) and (0,)): an
+    engine that sums only owner spans (`span_layouts`) never reads the
+    whole levels' tables, which at tens of millions of neurons take more
+    than ten gigabytes of the card."""
     t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
-    sorted_leaf = structure.leaf_of[structure.order].astype(np.int64)
+    sorted_leaf = structure.leaf_of[structure.order].astype(np.int64) if runs else None
     levels = []
     for l in range(structure.depth + 1):
-        stride = 8 ** (structure.depth - l)
-        starts = structure.leaf_start[::stride].astype(np.int64)   # (8^l + 1,)
-        counts = np.diff(starts)
-        width = max(int(counts.max()), 1)
-        slot = np.arange(width, dtype=np.int64)[None, :]
-        # Slots past a box's run point at row n, a zero row (_run_sums).
-        runs = np.where(slot < counts[:, None], starts[:-1, None] + slot, structure.n)
+        width = structure.run_width(l)
+        if runs:
+            starts = structure.leaf_start[::8 ** (structure.depth - l)].astype(np.int64)
+            counts = np.diff(starts)                                # (8^l,)
+            slot = np.arange(width, dtype=np.int64)[None, :]
+            # Slots past a box's run point at row n, a zero row (_run_sums).
+            run_rows = np.where(slot < counts[:, None], starts[:-1, None] + slot, structure.n)
+            box_sorted = np.append(sorted_leaf >> (3 * (structure.depth - l)), 0)
+        else:
+            run_rows, box_sorted = np.zeros((0, width), np.int64), np.zeros((0,), np.int64)
         levels.append(LevelLayout(
             centers=torch.as_tensor(structure.centers_at(l), device=device),
-            occupied=t(structure.occupied_at(l)),
-            box_sorted=t(np.append(sorted_leaf >> (3 * (structure.depth - l)), 0)),
-            runs=t(runs)))
+            occupied=t(structure.occupied_at(l)), box_sorted=t(box_sorted),
+            runs=t(run_rows)))
     return OctreeTensors(structure=structure, order=t(structure.order),
                          leaf_start=t(structure.leaf_start),
                          leaf_of=t(structure.leaf_of), levels=levels)
@@ -227,12 +273,78 @@ def _run_sums(vals_sorted: torch.Tensor, layout: LevelLayout,
     return x[:, 0] if carry is None else x[:, 0] + carry
 
 
+# The widest (boxes, run width, k) slab a level gathers whole; a wider level
+# (a rank's span of a network of tens of millions of neurons) is summed in
+# blocks of boxes and, where one box's run is itself too wide, with its
+# first halvings taken in column blocks (`_blocked_run_sums`).
+SLAB_ELEMENTS = 1 << 29
+
+
+def _halve(x: torch.Tensor, carry: Optional[torch.Tensor]) -> torch.Tensor:
+    """`_run_sums`' halving tree from a (boxes, w, C) table and the carry of
+    the halvings already taken."""
+    while x.shape[1] > 1:
+        w = x.shape[1]
+        h = w // 2
+        if w % 2:
+            carry = x[:, w - 1] if carry is None else carry + x[:, w - 1]
+        x = x[:, :h] + x[:, h:2 * h]
+    return x[:, 0] if carry is None else x[:, 0] + carry
+
+
+def _blocked_run_sums(rows_fn, runs: torch.Tensor, channels: int,
+                      budget: Optional[int] = None) -> torch.Tensor:
+    """`_run_sums` (ordered) of the per-row values `rows_fn(rows)` (rows: an
+    int64 index tensor of any shape -> (..., channels)), never holding more
+    than about `budget` gathered values.  Each halving adds column i + h onto
+    column i, element by element, so the first K halvings of a block of
+    columns are the same additions whichever columns are computed together:
+    a wide run is reduced K levels column block by column block, and the
+    tree goes on from there with the carries of those levels, in their
+    order.  The result is `_run_sums`' bit for bit.  budget: None is a
+    quarter of `SLAB_ELEMENTS`."""
+    budget = SLAB_ELEMENTS // 4 if budget is None else budget
+    boxes, w = runs.shape
+    widths = [w]
+    while widths[-1] > 1:
+        widths.append(widths[-1] // 2)
+    k = 0
+    while widths[k] * channels > budget and k + 1 < len(widths):
+        k += 1
+    per = max(1, budget // max(widths[k] * channels, 1))
+
+    def lazy(rr, level: int, a: int, b: int) -> torch.Tensor:
+        if level == 0:
+            return rows_fn(rr[:, a:b])
+        h = widths[level]
+        return lazy(rr, level - 1, a, b) + lazy(rr, level - 1, a + h, b + h)
+
+    out = []
+    for i in range(0, boxes, per):
+        rr = runs[i:i + per]
+        carry = None
+        for level in range(1, k + 1):
+            wp = widths[level - 1]
+            if wp % 2:
+                col = lazy(rr, level - 1, wp - 1, wp)[:, 0]
+                carry = col if carry is None else carry + col
+        step = max(1, budget // (4 * rr.shape[0] * channels))
+        x = torch.cat([lazy(rr, k, a, min(a + step, widths[k]))
+                       for a in range(0, widths[k], step)], dim=1)
+        out.append(_halve(x, carry))
+    return torch.cat(out)
+
+
 def build_level_raw(layout: LevelLayout, pos_s: torch.Tensor, ax_s: torch.Tensor,
                     den_s: torch.Tensor, delta: float, p: int = DEFAULT_ORDER,
                     ordered: bool = True):
     """The raw per-box sums of one level, from Morton-sorted positions and
     vacancies, each with a zero last row.  Returns (den_w, ax_w, den_pos,
-    ax_pos, herm_raw, moms).  ordered: `_run_sums`'."""
+    ax_pos, herm_raw, moms).  ordered: `_run_sums`'.  A level whose slab
+    would pass `SLAB_ELEMENTS` is summed in blocks (ordered, the same bits)
+    from values computed row by row, never for every row at once."""
+    if layout.runs.shape[0] * layout.runs.shape[1] * p ** 3 > SLAB_ELEMENTS:
+        return _build_level_raw_blocked(layout, pos_s, ax_s, den_s, delta, p)
     sums = lambda v: _run_sums(v, layout, ordered)
     scalars = sums(torch.stack([den_s, ax_s], dim=1))
     den_pos = sums(den_s[:, None] * pos_s)
@@ -245,6 +357,26 @@ def build_level_raw(layout: LevelLayout, pos_s: torch.Tensor, ax_s: torch.Tensor
     herm_raw = sums(den_s[:, None] * feats)
     moms = sums(ax_s[:, None] * feats)
     return scalars[:, 0], scalars[:, 1], den_pos, ax_pos, herm_raw, moms
+
+
+def _build_level_raw_blocked(layout: LevelLayout, pos_s: torch.Tensor, ax_s: torch.Tensor,
+                             den_s: torch.Tensor, delta: float, p: int):
+    """`build_level_raw` through `_blocked_run_sums`: each row's 136 values
+    (counts, weighted positions, both sides' weighted monomials) are made
+    from the rows a block gathers, by the element-wise operations the
+    whole-vector build applies, and summed side by side."""
+    root = math.sqrt(delta)
+    k = p ** 3
+
+    def rows_fn(rows):
+        den, ax, pos = den_s[rows], ax_s[rows], pos_s[rows]
+        feats = mi.monomials((pos - layout.centers[layout.box_sorted[rows]]) / root, p)
+        return torch.cat([den[..., None], ax[..., None], den[..., None] * pos,
+                          ax[..., None] * pos, den[..., None] * feats, ax[..., None] * feats],
+                         dim=-1)
+
+    raw = _blocked_run_sums(rows_fn, layout.runs, 8 + 2 * k)
+    return (raw[:, 0], raw[:, 1], raw[:, 2:5], raw[:, 5:8], raw[:, 8:8 + k], raw[:, 8 + k:])
 
 
 def finalize_level(centers: torch.Tensor, raw, p: int = DEFAULT_ORDER) -> LevelData:
@@ -358,10 +490,21 @@ class OwnerSpans:
         return int(sum(self.occ_width[1:]))
 
 
-def _first_members(ids: np.ndarray):
-    """(first-member flags, index of each neuron's box's first member)."""
-    first = np.r_[True, ids[1:] != ids[:-1]]
-    return first, np.maximum.accumulate(np.where(first, np.arange(ids.shape[0]), 0))
+def _first_rows(structure: OctreeStructure, level: int):
+    """(ids of the occupied boxes at `level`, the row of each one's first
+    member, each one's member count) of a Morton-sorted structure, whose
+    box b holds the rows [leaf_start[b * 8^(depth - l)], ...) of its
+    level's stride: a box's first member is the first row of its run."""
+    starts = structure.leaf_start[::8 ** (structure.depth - level)].astype(np.int64)
+    counts = np.diff(starts)
+    occ = np.flatnonzero(counts)
+    return occ, starts[occ], counts[occ]
+
+
+def _require_sorted(structure: OctreeStructure) -> None:
+    if np.any(structure.leaf_of[1:] < structure.leaf_of[:-1]):
+        raise ValueError("owner_spans needs Morton-sorted neurons "
+                         "(box ids must be nondecreasing)")
 
 
 def owner_spans(structure: OctreeStructure, num_shards: int) -> OwnerSpans:
@@ -378,22 +521,22 @@ def owner_spans(structure: OctreeStructure, num_shards: int) -> OwnerSpans:
     occ_stop = np.zeros((depth + 1, num_shards), np.int32)
     width, occ_width, owners = [], [], []
     ranks = np.arange(num_shards)
+    _require_sorted(structure)        # then every level's box ids are nondecreasing
     for level in range(depth + 1):
-        ids = structure.box_of(level)
-        if np.any(ids[1:] < ids[:-1]):
-            raise ValueError("owner_spans needs Morton-sorted neurons "
-                             "(box ids must be nondecreasing)")
-        first, first_idx = _first_members(ids)
-        owner = (first_idx // n_local).astype(np.int32)   # nondecreasing
-        start[level] = np.searchsorted(owner, ranks, side="left")
-        stop[level] = np.searchsorted(owner, ranks, side="right")
-        width.append(max(int((stop[level] - start[level]).max()), 1))
-        owners.append(owner)
-        # Occupied box j starts at the j-th first member; its owner is that
-        # neuron's.
-        occ_owner = owner[np.flatnonzero(first)]
+        # Occupied box j's owner is its first member's rank; every member
+        # has its box's owner, so the owners are nondecreasing and a rank's
+        # span runs from the first row of its first box to that of the next
+        # rank's.
+        _, first_row, counts = _first_rows(structure, level)
+        occ_owner = (first_row // n_local).astype(np.int32)
+        owner = np.repeat(occ_owner, counts)
         occ_start[level] = np.searchsorted(occ_owner, ranks, side="left")
         occ_stop[level] = np.searchsorted(occ_owner, ranks, side="right")
+        bounds = np.append(first_row, n)
+        start[level] = bounds[occ_start[level]]
+        stop[level] = bounds[occ_stop[level]]
+        width.append(max(int((stop[level] - start[level]).max()), 1))
+        owners.append(owner)
         occ_width.append(max(int((occ_stop[level] - occ_start[level]).max()), 1))
     return OwnerSpans(num_shards=num_shards, start=start, stop=stop, width=tuple(width),
                       neuron_owner=tuple(owners), occ_start=occ_start, occ_stop=occ_stop,
@@ -419,10 +562,11 @@ def routed_tables(structure: OctreeStructure, spans: OwnerSpans) -> RoutedTables
     owns each box are known before the first step."""
     n_local = structure.n // spans.num_shards
     occ_ids, box_owner = [], []
+    _require_sorted(structure)
     for level in range(structure.depth + 1):
-        first, first_idx = _first_members(structure.box_of(level))
-        occ_owner = (first_idx[first] // n_local).astype(np.int32)
-        occ = structure.occupied_at(level)
+        occ, first_row, _ = _first_rows(structure, level)
+        occ_owner = (first_row // n_local).astype(np.int32)
+        occ = occ.astype(np.int32)
         width = spans.occ_width[level]
         base = np.clip(spans.occ_start[level], 0, max(occ.shape[0] - width, 0))
         occ_ids.append(occ[base[:, None] + np.arange(width)[None, :]].astype(np.int32))
@@ -453,11 +597,13 @@ def span_layouts(tree: OctreeTensors, spans: OwnerSpans, rank: int) -> List[Span
         start, stop = int(spans.start[l, rank]), int(spans.stop[l, rank])
         shift = 3 * (structure.depth - l)
         box_rows = structure.leaf_of[structure.order[start:stop]].astype(np.int64) >> shift
-        owned = np.unique(box_rows)
+        # The rows are in Morton order: their boxes are sorted already.
+        owned = box_rows[np.r_[True, box_rows[1:] != box_rows[:-1]]] if box_rows.size \
+            else box_rows
         stride = 8 ** (structure.depth - l)
         starts = structure.leaf_start[::stride].astype(np.int64)
         counts = np.diff(starts)[owned]
-        slot = np.arange(full.runs.shape[1], dtype=np.int64)[None, :]
+        slot = np.arange(structure.run_width(l), dtype=np.int64)[None, :]
         runs = np.where(slot < counts[:, None], starts[owned][:, None] - start + slot,
                         stop - start)
         out.append(SpanLevel(LevelLayout(centers=full.centers, occupied=t(owned),

@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import trace
+from repro_torch.core.noise import picked as noise_picked
 from repro_torch.kernels import ops
 
 
@@ -158,6 +159,74 @@ def delete_excess(state: SynapseState, ax_elems: torch.Tensor,
     return state._replace(valid=valid & ~kill)
 
 
+def _kill_span(seg_ids: torch.Tensor, valid: torch.Tensor, excess: torch.Tensor, prio_fn,
+               slot_lo: int, rank: int, gather) -> torch.Tensor:
+    """This rank's part of one side of `delete_excess`: the slots of its
+    range whose edge ranks below its segment's excess.
+
+    A segment's `excess` first edges in the global order (seg, priority,
+    slot) are among the `excess` first of each rank's own, so a rank ranks
+    its own live edges of the segments with excess, keeps those below the
+    excess, and hands their sorted keys on (one gather of the counts, one
+    of the keys, padded to the longest); an edge's global rank is its own
+    rank plus the kept keys of the other ranks ahead of it in its segment
+    (at an equal key, a lower rank's slots come first).  Where some rank
+    kept the whole excess ahead of an edge, the count reaches the excess
+    and the edge stays, as it should.  All integer: the kill set of
+    `delete_excess` on the whole table, cut to this range."""
+    dev = valid.device
+    cand = torch.nonzero(valid & (excess > 0)[seg_ids]).squeeze(1)
+    seg = seg_ids[cand].long()
+    key = (seg << 32) | prio_fn(cand + slot_lo)
+    order = torch.sort(key, stable=True).indices
+    key_s, seg_s = key[order], seg[order]
+    own = torch.arange(cand.shape[0], dtype=torch.int64, device=dev) - _segment_starts(seg_s)
+    keep = own < excess[seg_s]
+    key_k, seg_k, own_k, slot_k = key_s[keep], seg_s[keep], own[keep], cand[order][keep]
+    counts = gather(torch.tensor([key_k.shape[0]], dtype=torch.int64, device=dev))
+    width = max(int(counts.max()), 1)
+    p = counts.shape[0]
+    padded = torch.full((width,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=dev)
+    padded[:key_k.shape[0]] = key_k
+    keys_g = gather(padded).reshape(p, width)
+    ranks = torch.arange(p, device=dev)[:, None]
+    q = key_k.expand(p, -1).contiguous()
+    at = torch.where(ranks < rank, torch.searchsorted(keys_g, q, right=True),
+                     torch.searchsorted(keys_g, q))
+    seg0 = torch.searchsorted(keys_g, (seg_k << 32).expand(p, -1).contiguous())
+    ahead = own_k + torch.where(ranks != rank, at - seg0, 0).sum(dim=0)
+    kill = torch.zeros_like(valid)
+    kill[slot_k[ahead < excess[seg_k]]] = True
+    return kill
+
+
+def delete_excess_span(state: SynapseState, excess_src: torch.Tensor,
+                       excess_dst: torch.Tensor, noise, step: int, *, slot_lo: int,
+                       capacity: int, rank: int, gather) -> SynapseState:
+    """`delete_excess` for one rank's slot range [slot_lo, slot_lo + E/p) of
+    a table of `capacity` slots, without the table leaving its ranks.
+
+    excess_src, excess_dst: the replicated (n,) int excess per neuron on
+    each side (the merged degree less floor(elements), at least 0), taken
+    before any deletion, as `delete_excess` takes them.  A side with no
+    excess anywhere skips its ranking, its draw and its collectives (a
+    replicated predicate).  gather: `launch.mesh.Group.gather`.  The kept
+    slots equal that range of `delete_excess` on the whole table."""
+    valid = state.valid
+    kill = None
+    for side, seg_ids, excess in ((0, state.src, excess_src), (1, state.dst, excess_dst)):
+        if bool((excess > 0).any()):
+            bits = lambda at, side=side: noise_picked(
+                noise, lambda s: noise.delete_bits(step, side, s), capacity, at)
+            k = _kill_span(seg_ids, valid, excess, bits, slot_lo, rank, gather)
+            kill = k if kill is None else kill | k
+    if kill is None:
+        return state
+    if trace.recording():
+        trace.count("update.deleted", kill.sum())
+    return state._replace(valid=valid & ~kill)
+
+
 def resolve_conflicts(partner: torch.Tensor, request_cnt: torch.Tensor,
                       den_capacity: torch.Tensor, prio: torch.Tensor) -> torch.Tensor:
     """Dendrite-side acceptance (paper Sec. 4).
@@ -275,6 +344,9 @@ def insert(state: SynapseState, partner: torch.Tensor, accepted: torch.Tensor,
             total_new - placed)
 
 
+INSERT_BLOCK = 1 << 26      # slots of a range `insert_span` walks at once
+
+
 def insert_span(state: SynapseState, partner: torch.Tensor, accepted: torch.Tensor,
                 max_per_neuron: int, *, free_offset) -> Tuple[SynapseState, torch.Tensor, int]:
     """`insert` for one rank's contiguous slot range of the edge table.
@@ -287,11 +359,25 @@ def insert_span(state: SynapseState, partner: torch.Tensor, accepted: torch.Tens
     the local range equals that range of `insert` on the whole table."""
     nk = partner.shape[0] * max_per_neuron
     buf_src, buf_dst, total_new = _stage_units(partner, accepted, max_per_neuron)
-    free = ~state.valid
-    free_rank = free_offset + torch.cumsum(free, dim=0) - 1
-    take = free & (free_rank < total_new) & (free_rank < nk)
-    pick = torch.clamp(free_rank, max=nk - 1)
-    new_src = torch.where(take, buf_src[pick], state.src)
-    new_dst = torch.where(take, buf_dst[pick], state.dst)
-    return (SynapseState(src=new_src, dst=new_dst, valid=state.valid | take),
-            take.sum(), total_new)
+    # The units this range takes are the global units [free_offset, limit),
+    # into its first free slots: the range is walked in blocks until they
+    # are placed, so no slot-sized temporary is held.
+    need = min(total_new, nk) - int(free_offset)
+    placed = torch.zeros((), dtype=torch.int64, device=state.valid.device)
+    if need <= 0:
+        return state, placed, total_new
+    src, dst, valid = state.src.clone(), state.dst.clone(), state.valid.clone()
+    done = 0
+    for a in range(0, valid.shape[0], INSERT_BLOCK):
+        free = ~state.valid[a:a + INSERT_BLOCK]
+        rank = done + torch.cumsum(free, dim=0) - 1
+        take = free & (rank < need)
+        pick = torch.clamp(int(free_offset) + rank, max=nk - 1)
+        src[a:a + INSERT_BLOCK] = torch.where(take, buf_src[pick], src[a:a + INSERT_BLOCK])
+        dst[a:a + INSERT_BLOCK] = torch.where(take, buf_dst[pick], dst[a:a + INSERT_BLOCK])
+        valid[a:a + INSERT_BLOCK] |= take
+        placed = placed + take.sum()
+        done += int(free.sum())
+        if done >= need:
+            break
+    return SynapseState(src=src, dst=dst, valid=valid), placed, total_new

@@ -131,11 +131,24 @@ def _count_used(child_ax_w, tgt_den_w, cfg: FMMConfig, expansions_valid: bool) -
     trace.count("search.pairs.direct.used", (live & ~heavy_den).sum())
 
 
+# Source boxes of one level scored at once at most (each box on its own
+# rows, so blocks give the same bits): 2^18, the boxes of a level of depth
+# 6, so that a network whose levels fit scores each level whole.
+SCORE_BOXES = 1 << 18
+# Rows of the leaf resolve at once at most, times the widest leaf.
+RESOLVE_SLOTS = 1 << 26
+
+
 def _score_level(structure, level: int, nxt: LevelData, occ: torch.Tensor,
                  tgt: torch.Tensor, cfg: FMMConfig, gumbel: torch.Tensor) -> torch.Tensor:
     """The descent into `level` of the source boxes `occ`: each picks one of
     the 8 children of its parent's target box.  Returns their target boxes
-    (-1 where dead).  gumbel: (len(occ), 8)."""
+    (-1 where dead).  gumbel: (len(occ), 8).  More than `SCORE_BOXES` boxes
+    are scored in blocks."""
+    if occ.shape[0] > SCORE_BOXES:
+        return torch.cat([_score_level(structure, level, nxt, occ[i:i + SCORE_BOXES], tgt,
+                                       cfg, gumbel[i:i + SCORE_BOXES])
+                          for i in range(0, occ.shape[0], SCORE_BOXES)])
     arange8 = torch.arange(8, dtype=torch.int64, device=occ.device)
     parent_tgt = tgt[occ >> 3]                                    # (O,)
     base = torch.clamp(parent_tgt, min=0)
@@ -229,12 +242,19 @@ def resolve_leaf_partners(tree: OctreeTensors, positions: torch.Tensor,
     global (n,) vectors.  Every row is resolved on its own and draws what
     the full resolve draws for it, so a rank's rows are the matching slice
     of the full result bit for bit.
-    Returns (m,) int32 partner neuron (-1 = none)."""
+    Returns (m,) int32 partner neuron (-1 = none).  More than
+    `RESOLVE_SLOTS` candidate slots are resolved in blocks of rows."""
     structure = tree.structure
     n = structure.n
     m = my_tgt.shape[0]
     hi = row_start + m
     max_leaf = max(structure.max_leaf, 1)
+    if m * max_leaf > RESOLVE_SLOTS:
+        block = max(1, RESOLVE_SLOTS // max_leaf)
+        return torch.cat([resolve_leaf_partners(tree, positions, ax_vac, den_vac,
+                                                my_tgt[i:i + block], cfg, noise, step,
+                                                row_start + i)
+                          for i in range(0, m, block)])
     dev = positions.device
     rows_all = torch.arange(n, dtype=torch.int64, device=dev)
     rows = rows_all[row_start:hi]

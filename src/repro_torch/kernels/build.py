@@ -63,7 +63,9 @@ def compile_library(verbose: bool = False) -> tuple[Path, str]:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     extra = ["-Xptxas", "-v"] if verbose else []
-    objs = [BUILD_DIR / (s.stem + ".o") for s in srcs]
+    # Objects named by the process: ranks that start on their cards at once
+    # each build alone, and the last rename wins with the same library.
+    objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in srcs]
     procs = [subprocess.Popen([nvcc(), *ARCH, *FLAGS, *extra, "-c", str(s),
                                "-o", str(o)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -80,6 +82,8 @@ def compile_library(verbose: bool = False) -> tuple[Path, str]:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     tmp.replace(lib)
+    for o in objs:
+        o.unlink(missing_ok=True)
     return lib, "\n".join(log)
 
 

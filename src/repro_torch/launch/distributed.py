@@ -185,11 +185,19 @@ def held_bytes(tree) -> dict:
                 largest=max(map(size, ts)))
 
 
+def rank_device(device: str, rank: int) -> str:
+    """The device of rank `rank` when the ranks run on `device`: card r
+    ("cuda:<r>") for the card, the CPU for "cpu"."""
+    kind = torch.device(device).type
+    return f"cuda:{rank}" if kind == "cuda" else kind
+
+
 def _rank_main(rank: int, world: int, init_file: str, jobs: Sequence, out_dir: str,
                device: str, collective_timeout_s: float, ensemble: Optional[int],
                lm: Optional[Tuple[int, int]] = None) -> None:
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_data_group, make_host_mesh, make_sweep_groups
+    device = rank_device(device, rank)
     if device == "cpu":
         torch.set_num_threads(1)        # p processes share the host's cores
     init = f"file://{init_file}"
@@ -221,8 +229,12 @@ def run_ranks(world: int, jobs: Sequence, device: str = "cuda", timeout_s: float
     if a rank fails (a collective that waits longer than
     collective_timeout_s fails it), and stops every rank and raises if they
     are not done within timeout_s.  Runs on the card unless device="cpu"
-    (gloo) is asked for."""
-    _device.resolve(device)
+    (gloo) is asked for; on the card, rank r runs on card r (`rank_device`),
+    and fewer cards than ranks is an error before any rank is spawned."""
+    dev = _device.resolve(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < world:
+        raise RuntimeError(f"{world} ranks need {world} cards, one a rank; "
+                           f"{torch.cuda.device_count()} visible")
     if ensemble is not None and world % ensemble:
         raise ValueError(f"the ensemble axis size {ensemble} must divide the world size {world}")
     if lm is not None and lm[0] * lm[1] != world:

@@ -14,6 +14,9 @@ are the collectives the reference's helpers take as callables:
     gather_objects  (host objects, results only)    dist.all_gather_object
     gather_to_host  (checkpoints: to one rank)       dist.send / dist.recv
 
+Each collective runs in a `dist.<op>` range (`record_function`) and, while
+a profiler records, counts its calls and bytes in `repro_torch.trace`
+(`dist.<op>.calls`, `dist.<op>.bytes`: what `CountingGroup` counts).
 A bool tensor travels as uint8.  A group carries the name of its axis
 (`rules.DATA` or `rules.ENSEMBLE`): the step loops make collectives on data
 groups only, and an ensemble group (its rank is the ensemble coordinate) carries
@@ -44,14 +47,30 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from repro_torch import device as _device
+from repro_torch import trace
 from repro_torch.sharding.rules import DATA, ENSEMBLE, MODEL, POD, block_of, coords_of
+
+
+def _op(name: str, nbytes: int):
+    """The range of one collective, `dist.<name>`, and its counts while a
+    profiler records (`repro_torch.trace`): `dist.<name>.calls` and
+    `dist.<name>.bytes`, the bytes `CountingGroup` counts for it."""
+    trace.count(f"dist.{name}.calls", 1)
+    trace.count(f"dist.{name}.bytes", nbytes)
+    return record_function(f"dist.{name}")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class Group:
     """One rank's view of a `torch.distributed` process group (None = the
-    default group)."""
+    default group).  Each collective runs in a `dist.<op>` range and, while
+    a profiler records, counts its calls and bytes (`_op`)."""
 
     def __init__(self, pg=None, name: str = DATA):
         self.pg = pg
@@ -64,49 +83,58 @@ class Group:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's x concatenated along dim 0, in rank order."""
         src = x.contiguous().view(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-        out = src.new_empty((self.size * src.shape[0],) + tuple(src.shape[1:]))
-        dist.all_gather_into_tensor(out, src, group=self.pg)
+        with _op("gather", self.size * _nbytes(src)):
+            out = src.new_empty((self.size * src.shape[0],) + tuple(src.shape[1:]))
+            dist.all_gather_into_tensor(out, src, group=self.pg)
         return out.view(torch.bool) if x.dtype == torch.bool else out
 
     def merge(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's x (exact for integers, and for floats
         where at most one rank holds a value other than zero)."""
-        out = x.clone()
-        dist.all_reduce(out, group=self.pg)
+        with _op("merge", _nbytes(x)):
+            out = x.clone()
+            dist.all_reduce(out, group=self.pg)
+        return out
+
+    def _sum_f32(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        with _op(name, 4 * x.numel()):
+            out = x.to(torch.float32, copy=True)
+            dist.all_reduce(out, group=self.pg)
         return out
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's x in float32 (a float32 tensor; the
         tensor-parallel partial products).  Every rank gets the same bits."""
-        out = x.to(torch.float32, copy=True)
-        dist.all_reduce(out, group=self.pg)
-        return out
+        return self._sum_f32("reduce", x)
 
     def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
         """`reduce` in a backward: the float32 sum of every rank's partial
         gradient (the tensor-parallel step's sums over the model axis,
         counted apart from the forward's)."""
-        return self.reduce(x)
+        return self._sum_f32("grad_sum", x)
 
     def scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
         """x: (size, ...) -> (...): block `rank` of the sum over ranks."""
-        out = x.new_empty(tuple(x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x.reshape((-1,) + tuple(x.shape[2:])).contiguous(),
-                                   group=self.pg)
+        with _op("scatter_sum", _nbytes(x)):
+            out = x.new_empty(tuple(x.shape[1:]))
+            dist.reduce_scatter_tensor(out, x.reshape((-1,) + tuple(x.shape[2:])).contiguous(),
+                                       group=self.pg)
         return out
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x: (size, ...) -> (size, ...): entry i of the result is rank i's
         x[rank] (entry j of x goes to rank j)."""
-        src = x.contiguous()
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=self.pg)
+        with _op("all_to_all", _nbytes(x)):
+            src = x.contiguous()
+            out = torch.empty_like(src)
+            dist.all_to_all_single(out, src, group=self.pg)
         return out
 
     def gather_objects(self, obj) -> list:
         """Every rank's picklable host object, in rank order."""
-        out = [None] * self.size
-        dist.all_gather_object(out, obj, group=self.pg)
+        with _op("gather_objects", 0):
+            out = [None] * self.size
+            dist.all_gather_object(out, obj, group=self.pg)
         return out
 
     def gather_to_host(self, parts: List[torch.Tensor], dst: int = 0) -> Optional[list]:
@@ -117,6 +145,10 @@ class Group:
         point-to-point sends through the group's device, so no device holds
         more than its own parts and one more: a checkpoint of a state that
         no card holds whole."""
+        with _op("gather_to_host", sum(_nbytes(p) for p in parts)):
+            return self._gather_to_host(parts, dst)
+
+    def _gather_to_host(self, parts: List[torch.Tensor], dst: int) -> Optional[list]:
         peer = (lambda r: r) if self.pg is None else (lambda r: dist.get_global_rank(self.pg, r))
         wire = lambda t: t.view(torch.uint8) if t.dtype == torch.bool else t
         if self.rank != dst:

@@ -34,7 +34,16 @@ The counters, each at the boundary where its work happens:
                                 vacancies), max requests) (`engine`)
     update.committed            units placed in the edge table (`synapses.insert`)
     update.deleted              synapses deleted (`synapses.delete_excess`)
-    update.networks             network connectivity updates run (`engine`)
+    update.networks             network connectivity updates run (`engine`,
+                                the distributed engine's too)
+    dist.<op>.calls, .bytes     each collective of a `launch.mesh.Group`
+                                (gather, merge, reduce, grad_sum,
+                                scatter_sum, all_to_all, gather_objects,
+                                gather_to_host) and the bytes
+                                `CountingGroup` counts for it; each runs in
+                                a `dist.<op>` range
+    dist.exchange.rows          pyramid rows the routed exchange fetches for
+                                this rank (`core.distributed`)
 """
 from __future__ import annotations
 

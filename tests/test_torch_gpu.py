@@ -725,3 +725,41 @@ def test_lm_tp_step_on_a_one_rank_nccl_layout_equals_single_device(cuda_device, 
     finally:
         adamw.update = update
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_four_ranks_over_nccl_equal_one_card():
+    """p = 4 ranks over NCCL, one card each (`run_ranks` puts rank r on card
+    r), at n = 2^16 with the routed, sharded switches and counter draws,
+    from a start with synapses and elements below the degree (so the
+    deletion ranks over the slot ranges): records, spikes and edge tables
+    bit for bit the single-device engine's on the sorted positions."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    from repro_torch import convert
+    from repro_torch.core.distributed import sorted_positions
+    from repro_torch.launch.distributed import Job, run_ranks, same_run
+    n, dev = 1 << 16, torch.device("cuda", 0)
+    msp_cfg = MSPConfig.calibrated(speedup=100.0)
+    fmm_cfg = FMMConfig(sigma=750.0)
+    ecfg = EngineConfig(domain=877.0, rng="counter")
+    pos = sorted_positions(np.random.default_rng(3).uniform(0, 877.0, (n, 3))
+                           .astype(np.float32), ecfg)
+    eng = PlasticityEngine(pos, msp_cfg, fmm_cfg, ecfg, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    st = eng.init_state()
+    e = 30 * n
+    src = torch.randint(0, n, (e,), generator=g, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=g, device=dev, dtype=torch.int32)
+    st.edges.src[:e], st.edges.dst[:e], st.edges.valid[:e] = src, dst, True
+    u = lambda lo, hi: torch.empty(n, device=dev).uniform_(lo, hi, generator=g)
+    deg = lambda ids: torch.bincount(ids.long(), minlength=n).float()
+    st = st._replace(neurons=st.neurons._replace(
+        calcium=u(0.5, 0.9), ax_elems=torch.clamp(deg(src) + u(-2.0, 1.5), min=0),
+        den_elems=torch.clamp(deg(dst) + u(-2.0, 3.0), min=0)))
+    opts = dict(pyramid_partials="owner_span", find_phase="sharded", pyramid_exchange="routed")
+    job = Job(pos, msp_cfg, fmm_cfg, ecfg, opts, 250, seed=6, state=convert.to_numpy(st))
+    res, = run_ranks(4, [job], "cuda", 900.0, 300.0)
+    want_st, want_recs = eng.simulate(st, 250, seed=6)
+    assert same_run(res, want_st, want_recs) == []
+    assert int(want_recs.num_synapses[-1]) != e

@@ -221,3 +221,70 @@ def test_padded_update_opens_its_range_once(method):
     _assert_disjoint(spans)
     assert trace.counts()["search.rows"] == 2 * 70
     assert int(recs.num_synapses[-1]) > 0
+
+
+# -- the collectives' ranges and counters (two gloo ranks) -------------------------------
+
+class CollectiveJob:
+    """The distributed FMM engine (routed exchange below the root) on a
+    counting group: a run with no profiler, then a profiled run across an
+    update.  Returns the registry after each, the census of the profiled
+    run and its `dist.*` ranges."""
+
+    def run(self, groups, device):
+        from repro_torch.core.distributed import DistributedPlasticityEngine
+        from repro_torch.launch.mesh import CountingGroup
+        g = CountingGroup(groups.data)
+        pos = np.random.default_rng(5).uniform(0, 1000.0, (N, 3)).astype(np.float32)
+        eng = DistributedPlasticityEngine(pos, g, MSP_CFG, FMM_CFG,
+                                          engine.EngineConfig(rng="counter"), device=device,
+                                          pyramid_exchange="routed", routed_shared_levels=0)
+        st = eng.init_state()
+        st = st._replace(neurons=st.neurons._replace(
+            calcium=torch.full_like(st.neurons.calcium, 0.5),
+            ax_elems=torch.full_like(st.neurons.ax_elems, 3.0),
+            den_elems=torch.full_like(st.neurons.den_elems, 3.0)))
+        trace.reset()
+        st, _ = eng.simulate(st, 40, seed=1)
+        off = trace.counts()
+        g.reset()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng.simulate(st, 70, seed=1)
+        on = trace.counts()
+        ranges = sorted(([e.name(), e.start_ns(), e.start_ns() + e.duration_ns()]
+                         for e in prof.profiler.kineto_results.events()
+                         if e.name().startswith("dist.")), key=lambda r: r[1])
+        return dict(off=off, on=on, census={k: dict(v) for k, v in g.counts.items()},
+                    ranges=ranges)
+
+
+@pytest.fixture(scope="module")
+def collectives():
+    from repro_torch.launch.distributed import run_ranks
+    res, = run_ranks(2, [CollectiveJob()], "cpu", 240.0, 60.0, ensemble=1)
+    return res
+
+
+def test_collective_counters_equal_the_census(collectives):
+    on, census = collectives["on"], collectives["census"]
+    assert census["merge"]["calls"] > 70 and census["gather"]["calls"] > 70
+    assert census["scatter_sum"]["calls"] > 0          # the routed exchange's
+    for op, c in census.items():
+        assert on.get(f"dist.{op}.calls", 0) == c["calls"], op
+        if op != "gather_objects":
+            assert on.get(f"dist.{op}.bytes", 0) == c["bytes"], op
+    assert on["dist.exchange.rows"] > 0
+    assert on["update.networks"] == 1
+
+
+def test_collectives_count_nothing_without_a_profiler(collectives):
+    assert not [k for k in collectives["off"] if k.startswith("dist.")]
+    assert collectives["off"] == {}
+
+
+def test_collective_ranges_never_nest(collectives):
+    ranges = collectives["ranges"]
+    census = collectives["census"]
+    assert len(ranges) == sum(c["calls"] for c in census.values())
+    for (_, _, end), (_, start, _) in zip(ranges, ranges[1:]):
+        assert end <= start, "a dist.* range opened inside another"
