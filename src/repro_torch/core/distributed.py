@@ -69,7 +69,7 @@ from repro_torch.core import multi_index as mi
 from repro_torch.core import noise as _noise
 from repro_torch.core import ensemble as _ensemble
 from repro_torch.core.engine import (EngineConfig, KernelParams, PlasticityEngine, SimState,
-                                     StepRecord, records, stack_records)
+                                     StepRecord, count_synapses, records, stack_records)
 from repro_torch.core.msp import MSPConfig, NeuronState
 from repro_torch.core.synapses import SynapseState
 from repro_torch.core.traversal import FMMConfig
@@ -484,7 +484,7 @@ class DistributedPlasticityEngine(PlasticityEngine):
         if nsyn is None or do_update:
             # int64: a network's synapses can pass 2^31 (each rank's count
             # fits an int32, their sum need not).
-            nsyn = g.merge(states.edges.valid.sum(dim=-1, dtype=torch.int64))
+            nsyn = g.merge(count_synapses(states.edges, torch.int64))
         return states, records(obs[..., 0].contiguous(), spiked_g, nsyn), spiked_g, nsyn
 
     def _run_block(self, states: SimState, num_steps: int, noises, rows, signs, probes=None,

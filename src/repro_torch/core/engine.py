@@ -18,6 +18,8 @@ connectivity update):
 
 `simulate` is a host loop over `step`; the update runs when the advanced
 step counter is a multiple of `update_interval`, as in the JAX engine.
+The records' synapse count is taken on a run's first step and after each
+update, and carried over the steps between, which leave the table as is.
 `KernelParams` override the scalar knobs (sigma, c1, c2, the inhibitory
 fraction) per run, as the ensemble sweeps do; from the static configs they
 give the plain path's results bit for bit.  Probes (`core.probes`) ride
@@ -50,6 +52,7 @@ an argmax now and then.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -126,11 +129,23 @@ def activity_step(neurons: NeuronState, edges: SynapseState, sign, u: torch.Tens
     return NeuronState(*(t.reshape(neurons.x.shape) for t in new))
 
 
-def step_records(neurons: NeuronState, edges: SynapseState, n_active=None) -> StepRecord:
+def count_synapses(edges: SynapseState, dtype=torch.int32) -> torch.Tensor:
+    """Each edge table's live synapse count, over the last axis.  Adds the
+    number of tables counted to `records.tables_counted`."""
+    valid = edges.valid
+    trace.count("records.tables_counted", math.prod(valid.shape[:-1]))
+    return valid.sum(dim=-1, dtype=dtype)
+
+
+def step_records(neurons: NeuronState, edges: SynapseState, n_active=None,
+                 num_synapses: Optional[torch.Tensor] = None) -> StepRecord:
     """The step's records over the last axis (`records` of the neurons'
-    calcium and spikes and the edge table's synapse count)."""
-    return records(neurons.calcium, neurons.spiked,
-                   edges.valid.sum(dim=-1, dtype=torch.int32), n_active)
+    calcium and spikes and the edge table's synapse count).
+    num_synapses: the table's count carried from an earlier step that left
+    the table as it is (None = count it here)."""
+    if num_synapses is None:
+        num_synapses = count_synapses(edges)
+    return records(neurons.calcium, neurons.spiked, num_synapses, n_active)
 
 
 def records(calcium: torch.Tensor, spiked: torch.Tensor, num_synapses: torch.Tensor,
@@ -390,11 +405,17 @@ class PlasticityEngine:
         the advanced counter is a multiple of `update_interval`).
         n_active: only the first n_active rows are live (padded subdomains,
         module docs); for the isolated run's draws the noise must be a
-        counter one (`EngineConfig(rng="counter")`)."""
+        counter one (`EngineConfig(rng="counter")`).
+        A lone step has no earlier step's synapse count to carry, so it
+        counts the edge table every call (`simulate` carries the count)."""
         return self._step(state, noise, params, self._runtime_sign(params, n_active),
                           do_update, n_active)
 
-    def _step(self, state: SimState, noise, params, sign, do_update=None, n_active=None):
+    def _step(self, state: SimState, noise, params, sign, do_update=None, n_active=None,
+              num_synapses=None):
+        """`step` with its sign vector given.  num_synapses: the previous
+        step's record of the same run, reused unless this step updates
+        (None = count the table); the record carries the count used."""
         s = state.step
         mask = None if n_active is None else self.rows < n_active
         neurons = activity_step(state.neurons, state.edges, sign,
@@ -404,7 +425,8 @@ class PlasticityEngine:
             do_update = state.step % self.msp_cfg.update_interval == 0
         if do_update:
             state = self.connectivity_update(state, noise, s, params, n_active)
-        return state, step_records(neurons, state.edges, n_active)
+            num_synapses = None
+        return state, step_records(neurons, state.edges, n_active, num_synapses)
 
     # -- whole simulation -----------------------------------------------------
     def simulate(self, state: SimState, num_steps: int, seed: int = 0,
@@ -419,7 +441,10 @@ class PlasticityEngine:
         static configs).  probe_state: the probes' carry (None = a fresh one
         started at the state's step).  Probes are pure observers: the state
         and records are bit for bit those of a run without them.
-        n_active: the active row count of a padded state (see `step`)."""
+        n_active: the active row count of a padded state (see `step`).
+        The edge table's synapse count is taken on the first step and after
+        each update, and carried over the steps between (only within this
+        call: a caller may rewrite `state.edges` between calls)."""
         if n_active is not None and not 0 <= n_active <= self.n:
             raise ValueError(f"n_active={n_active} outside [0, {self.n}]")
         if noise is None:
@@ -427,10 +452,12 @@ class PlasticityEngine:
         if probes is not None and probe_state is None:
             probe_state = probes.init(self.n, start_step=state.step, device=self.device)
         sign = self._runtime_sign(params, n_active)
-        recs = []
+        recs, nsyn = [], None
         for _ in range(num_steps):
             prev = state
-            state, rec = self._step(state, noise, params, sign, n_active=n_active)
+            state, rec = self._step(state, noise, params, sign, n_active=n_active,
+                                    num_synapses=nsyn)
+            nsyn = rec.num_synapses
             if probes is not None:
                 probe_state = probes.record(probe_state, prev, state, rec)
             recs.append(rec)

@@ -145,6 +145,8 @@ def step_slots(engine: PlasticityEngine, states: SimState, noises: Sequence,
 
     The activity step is batched over all K x n rows; each live slot's
     update runs on its active prefix (`engine.connectivity_update`).
+    The records count the edge tables every call: the service rewrites slot
+    states between rounds when it admits or evicts a session.
     Returns (states, records with (K,) fields)."""
     eng = engine
     dev = eng.device
@@ -205,13 +207,16 @@ class EnsembleEngine:
         base = KernelParams.from_configs(self.engine.fmm_cfg, self.engine.engine_cfg)
         return KernelParams(*(np.full((num_replicas,), v, np.float32) for v in base))
 
-    def _step(self, states: SimState, noises, rows, signs) -> tuple:
+    def _step(self, states: SimState, noises, rows, signs, num_synapses=None) -> tuple:
         """One batched activity step, then every replica's connectivity
         update on the steps the shared counter schedules.  rows: each
         replica's `KernelParams` (or None); signs: their stacked sign
-        vectors (`stacked_signs`).  The K draws run in the `step.draws`
-        range, each update in its own `update.connectivity`, the stack of
-        the updated replicas in `update.stack`."""
+        vectors (`stacked_signs`); num_synapses: the previous step's (K,)
+        count of the same run, reused unless this step updates (None =
+        count the tables); the record carries the count used.  The K
+        draws run in the `step.draws` range, each update in its own
+        `update.connectivity`, the stack of the updated replicas in
+        `update.stack`."""
         eng = self.engine
         s = states.step
         with record_function("step.draws"):
@@ -223,8 +228,9 @@ class EnsembleEngine:
                      for k, nz in enumerate(noises)]
             with record_function("update.stack"):
                 states = stack_states(parts)
-            del parts       # the K replicas' own tables, before the records' pass
-        return states, step_records(neurons, states.edges)
+            del parts       # the K replicas' own tables, before the records' count
+            num_synapses = None
+        return states, step_records(neurons, states.edges, num_synapses=num_synapses)
 
     def simulate(self, states: SimState, num_steps: int, seed: int = 0, noises=None,
                  params: Optional[KernelParams] = None, probes=None, probe_states=None,
@@ -240,7 +246,10 @@ class EnsembleEngine:
         gather: return the records of all K replicas (one gather over the
         mesh after the run) instead of this rank's block.
         Returns (states, records with (num_steps, K) fields), and the probe
-        states as a third element when probes ride along."""
+        states as a third element when probes ride along.  The edge
+        tables' synapse counts are taken on the first step and after each
+        update, and carried over the steps between (only within this call:
+        a caller may rewrite `states.edges` between calls)."""
         kb = states.dropped.shape[0]
         k = kb * (1 if self.mesh is None else self.mesh.size)
         lo, hi = replica_block(self.mesh, k)
@@ -254,10 +263,11 @@ class EnsembleEngine:
         if probes is not None and probe_states is None:
             probe_states = probes.init(self.engine.n, start_step=states.step, batch=kb,
                                        device=self.engine.device)
-        recs = []
+        recs, nsyn = [], None
         for _ in range(num_steps):
             prev = states
-            states, rec = self._step(states, noises, rows, signs)
+            states, rec = self._step(states, noises, rows, signs, nsyn)
+            nsyn = rec.num_synapses
             if probes is not None:
                 probe_states = probes.record(probe_states, prev, states, rec)
             recs.append(rec)

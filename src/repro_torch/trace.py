@@ -36,6 +36,11 @@ The counters, each at the boundary where its work happens:
     update.deleted              synapses deleted (`synapses.delete_excess`)
     update.networks             network connectivity updates run (`engine`,
                                 the distributed engine's too)
+    records.tables_counted      edge tables whose flags were counted for the
+                                records' synapse count, K for a (K,) stack
+                                (`engine.count_synapses`: the single engine,
+                                the ensemble, the served slots and the
+                                distributed engine's rank parts)
     dist.<op>.calls, .bytes     each collective of a `launch.mesh.Group`
                                 (gather, merge, reduce, grad_sum,
                                 scatter_sum, all_to_all, gather_objects,

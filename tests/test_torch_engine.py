@@ -299,3 +299,43 @@ def test_taylor_chunk_matches_jax_and_the_unchunked_run(chunk):
     assert convert.configs_from_jax(dataclasses.asdict(jm), {**dataclasses.asdict(jf),
                                                              "taylor_chunk": chunk},
                                     dataclasses.asdict(je))[1] == chunked
+
+
+# -- the records' synapse count, carried between updates ------------------------------
+
+INTERVAL = 10
+# (steps run before the call, the call's chunks): one call over several
+# updates, the benchmark's [interval - 1, 1] chunks, a call that opens on an
+# update step.
+CARRY_CASES = {"one_call": (0, [35]), "interval_chunks": (0, [INTERVAL - 1, 1] * 3),
+               "first_step_updates": (INTERVAL - 1, [21])}
+
+
+@pytest.mark.parametrize("n_active", [None, 48], ids=["whole", "padded"])
+@pytest.mark.parametrize("start, chunks", CARRY_CASES.values(), ids=list(CARRY_CASES))
+def test_carried_synapse_count_equals_single_steps(start, chunks, n_active):
+    """`simulate` counts the edge table on its first step and after each
+    update and carries the count over the steps between; its records and
+    state equal repeated single `step` calls, each of which counts the
+    table afresh, bit for bit (padded state too)."""
+    pos, arrays = _mid_growth(64, 7)
+    cfg = dataclasses.replace(MSP_CFG, update_interval=INTERVAL)
+    eng = engine.PlasticityEngine(pos, cfg, FMM_CFG, ENGINE_CFG, device="cpu")
+    noise = GeneratorNoise(3, torch.device("cpu"))
+    st = want_st = convert.from_jax_state(arrays, "cpu")
+    want = []
+    for i in range(start + sum(chunks)):
+        want_st, rec = eng.step(want_st, noise, n_active=n_active)
+        want.append(rec)
+        if i + 1 == start:
+            st = want_st
+    want = engine.stack_records(want[start:], "cpu")
+    got = []
+    for steps in chunks:
+        st, rec = eng.simulate(st, steps, noise=noise, n_active=n_active)
+        got.append(rec)
+    for f in engine.StepRecord._fields:
+        assert torch.equal(torch.cat([getattr(r, f) for r in got]), getattr(want, f)), f
+    for f, a, b in zip(st.edges._fields, st.edges, want_st.edges):
+        assert torch.equal(a, b), f
+    assert len(set(want.num_synapses.tolist())) >= 3

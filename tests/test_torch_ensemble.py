@@ -25,7 +25,8 @@ from repro.launch import sweep as jsweep
 from repro_torch import convert
 from repro_torch.core import engine, ensemble, traversal
 from repro_torch.launch import sweep
-from test_torch_engine import MSP_CFG, JaxReplayNoise, _jax_state, _mid_growth
+from test_torch_engine import (CARRY_CASES, INTERVAL, MSP_CFG, JaxReplayNoise, _jax_state,
+                               _mid_growth)
 
 N, K, STEPS, SEED = 256, 4, 300, 11
 FMM_CFG = traversal.FMMConfig(c1=8, c2=8, sigma=600.0)
@@ -236,3 +237,41 @@ def test_ensemble_states_round_trip_through_convert(runs):
     p = convert.params_to_numpy(runs["params"])
     assert p["sigma"].tolist() == [600.0, 600.0, 750.0, 750.0]
     assert all(np.array_equal(a, b) for a, b in zip(convert.params_from_jax(p), runs["params"]))
+
+
+# -- the records' synapse count, carried between updates ------------------------------
+
+def _recount_every_step(ens, states, steps, noises):
+    """`steps` steps of `ens`, each step's records counting the tables afresh."""
+    rows = [None] * states.dropped.shape[0]
+    signs = ensemble.stacked_signs(ens.engine, rows)
+    recs = []
+    for _ in range(steps):
+        states, rec = ens._step(states, noises, rows, signs, num_synapses=None)
+        recs.append(rec)
+    return states, engine.stack_records(recs, "cpu")
+
+
+@pytest.mark.parametrize("start, chunks", CARRY_CASES.values(), ids=list(CARRY_CASES))
+def test_carried_synapse_count_equals_a_recount_every_step(start, chunks):
+    """`simulate` counts the edge tables on its first step and after each
+    update and carries the count over the steps between; its records and
+    state equal a loop that recounts every step, bit for bit."""
+    pos, arrays = _mid_growth(64, 7)
+    cfg = dataclasses.replace(MSP_CFG, update_interval=INTERVAL)
+    ens = ensemble.EnsembleEngine(engine.PlasticityEngine(pos, cfg, FMM_CFG, ENGINE_CFG,
+                                                          device="cpu"))
+    noises = ensemble.replica_noises(3, 2, torch.device("cpu"))
+    st0 = convert.from_jax_state({k: np.stack([v] * 2) for k, v in arrays.items()}, "cpu")
+    want_st, want = _recount_every_step(ens, st0, start + sum(chunks), noises)
+    st, _ = _recount_every_step(ens, st0, start, noises)
+    got = []
+    for steps in chunks:
+        st, rec = ens.simulate(st, steps, noises=noises)
+        got.append(rec)
+    for f in engine.StepRecord._fields:
+        assert torch.equal(torch.cat([getattr(r, f) for r in got]), getattr(want, f)[start:]), f
+    for f, a, b in zip(st.edges._fields, st.edges, want_st.edges):
+        assert torch.equal(a, b), f
+    syn = want.num_synapses[start:].numpy()
+    assert len(set(syn[:, 0].tolist())) >= 3 and (syn[:, 0] != syn[:, 1]).any()

@@ -223,6 +223,59 @@ def test_padded_update_opens_its_range_once(method):
     assert int(recs.num_synapses[-1]) > 0
 
 
+# -- the records' table counts ---------------------------------------------------------
+
+INTERVAL = 10
+# (steps run before the profiled calls, their chunks): one call over several
+# updates, the benchmark's [interval - 1, 1] chunks, a call that opens on an
+# update step.
+COUNT_CASES = {"one_call": (0, [35]), "interval_chunks": (0, [INTERVAL - 1, 1] * 3),
+               "first_step_updates": (INTERVAL - 1, [21])}
+
+
+def _updates_after_the_first_step(start, steps, interval=INTERVAL):
+    """Update steps among steps start+1 .. start+steps-1 of a run."""
+    return sum((t + 1) % interval == 0 for t in range(start + 1, start + steps))
+
+
+@pytest.mark.parametrize("start, chunks", COUNT_CASES.values(), ids=list(COUNT_CASES))
+def test_ensemble_counts_its_tables_on_the_first_step_and_after_each_update(start, chunks):
+    """One `EnsembleEngine.simulate` call adds K x (1 + the update steps
+    after its first) to `records.tables_counted`; the benchmark's
+    [interval - 1, 1] chunks read 2 x K an interval."""
+    k = 2
+    eng = _engine("fmm", n=64, interval=INTERVAL)
+    ens = EnsembleEngine(eng)
+    st = ens.init_states(k)
+    st = st._replace(neurons=type(st.neurons)(*(
+        torch.stack([t] * k) for t in _mid_growth(eng).neurons)))
+    noises = replica_noises(4, k, CPU)
+    st, _ = ens.simulate(st, start, noises=noises)
+    for steps in chunks:
+        s = st.step
+        trace.reset()
+        (st, recs), _ = _profiled(lambda: ens.simulate(st, steps, noises=noises))
+        assert (trace.counts()["records.tables_counted"]
+                == k * (1 + _updates_after_the_first_step(s, steps)))
+    assert int(recs.num_synapses[-1].min()) > 0
+
+
+def test_engine_counts_its_table_on_the_first_step_and_after_each_update():
+    """A `simulate` call of the single engine counts its table on the first
+    step and after each update; a lone `step` counts it every call."""
+    eng = _engine("fmm", n=64, interval=INTERVAL)
+    st = _mid_growth(eng)
+    (st, recs), _ = _profiled(lambda: eng.simulate(st, 35, seed=2))
+    assert trace.counts()["records.tables_counted"] == 1 + 3
+    assert int(recs.num_synapses[-1]) > 0
+    trace.reset()
+    noise = GeneratorNoise(2, CPU)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(5):
+            st, _ = eng.step(st, noise)
+    assert trace.counts()["records.tables_counted"] == 5
+
+
 # -- the collectives' ranges and counters (two gloo ranks) -------------------------------
 
 class CollectiveJob:
@@ -288,3 +341,11 @@ def test_collective_ranges_never_nest(collectives):
     assert len(ranges) == sum(c["calls"] for c in census.values())
     for (_, _, end), (_, start, _) in zip(ranges, ranges[1:]):
         assert end <= start, "a dist.* range opened inside another"
+
+
+def test_distributed_engine_counts_its_part_on_the_first_step_and_after_the_update(
+        collectives):
+    """The profiled 70 steps from step 40 update once, at step 100: each
+    rank counts its part of the table on the first step and after it."""
+    assert collectives["on"]["records.tables_counted"] == 1 + _updates_after_the_first_step(
+        40, 70, MSP_CFG.update_interval)
